@@ -1,0 +1,101 @@
+"""The port's CUDA kernels on the card: each kernel against its plain
+PyTorch version on the same inputs (exact equality — all integer), and
+the one-shot path against zultra_tpu's native engine (exact bytes).
+Skips without CUDA; run on the card with
+``python -m pytest tests/test_torch_cuda.py``."""
+
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+import zultra_tpu as zt
+from zultra_tpu import engine
+from zultra_tpu_torch import compress
+from zultra_tpu_torch.corpus import lz_data, mixed_corpus
+from zultra_tpu_torch.ops import block_torch, chain_cuda, dp_cuda, walk_cuda
+from zultra_tpu_torch.ops.entropy_torch import build_lengths
+from zultra_tpu_torch.ops.matchfinder_torch import (
+    HALO,
+    SEG_CORE,
+    build_segments,
+    match_tables_device_stacked,
+    salcp_batch,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    return torch.device("cuda")
+
+
+def _corpus(size=200_000):
+    return np.frombuffer(mixed_corpus(size - 20000, seed=61)
+                         + lz_data(20000, seed=62, alpha=4).tobytes(), np.uint8)
+
+
+def test_walk_kernel_equals_plain(cuda):
+    corpus = _corpus()
+    segbufs, _ = build_segments(corpus, [(0, len(corpus))], SEG_CORE)
+    salcp = salcp_batch(torch.from_numpy(segbufs[:3]).to(cuda))
+    got = walk_cuda.walk_segments(salcp, HALO, SEG_CORE)
+    torch.cuda.synchronize()
+    want = walk_cuda.walk_segments_plain(salcp.cpu(), HALO, SEG_CORE)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_dp_and_chain_kernels_equal_plain(cuda):
+    corpus = _corpus()
+    mbs = 65536
+    spans = [(0, mbs), (mbs, 2 * mbs)]
+    lens, offs = match_tables_device_stacked(corpus, spans, mbs, cuda)
+    n = 8192
+    win = torch.from_numpy(np.stack([corpus[i * n : (i + 1) * n] for i in range(8)])).to(cuda)
+    ml = lens[:, HALO:].reshape(16, n, 8)[:8].contiguous()
+    mo = offs[:, HALO:].reshape(16, n, 8)[:8].contiguous()
+    length = torch.tensor([n, n, n - 7, 5000, n, 1, n, n - 300], dtype=torch.int32, device=cuda)
+    g_lit, g_off, tok = block_torch.token_hist(win, ml[:, :, 0], mo[:, :, 0], length)
+    args = dp_cuda.prep_lanes(build_lengths(g_lit, 15), build_lengths(g_off, 15), win, ml, mo,
+                              length)
+    got = dp_cuda.dp_choices(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), dp_cuda.dp_choices_plain(*[a.cpu() for a in args]))
+
+    step = torch.where(lens[:, :, 0] >= 3, lens[:, :, 0], 1).contiguous()
+    start = torch.full((2,), HALO, dtype=torch.int32, device=cuda)
+    n_real = torch.full((2,), HALO + mbs, dtype=torch.int32, device=cuda)
+    marks = chain_cuda.chain_marks(step, start, n_real)
+    torch.cuda.synchronize()
+    assert torch.equal(marks.cpu(),
+                       chain_cuda.chain_marks_plain(step.cpu(), start.cpu(), n_real.cpu()))
+    assert bool(tok.any())
+
+
+def test_one_shot_equals_native(cuda):
+    engine.set_engine("native")
+    try:
+        data = _corpus(300_000).tobytes()
+        for flags, mbs in ((2, 0), (0, 65536), (1, 32768)):
+            got = compress(data, flags, mbs, device=cuda)
+            assert got == zt.compress(data, flags, mbs)
+        assert zlib.decompress(compress(data, 2, device=cuda), 31) == data
+    finally:
+        engine._active_engine = None
+
+
+def test_many_windows_and_largest_block_equal_native(cuda):
+    """20 windows of 32 KiB cross the 16-window device batch; a 2 MiB
+    block size (the largest legal) gives a 2^21-position DP lane."""
+    engine.set_engine("native")
+    try:
+        data = _corpus(20 * 32768 - 5000).tobytes()
+        assert compress(data, 1, 32768, device=cuda) == zt.compress(data, 1, 32768)
+        big = _corpus(2_200_000).tobytes()
+        assert compress(big, 0, 2 << 20, device=cuda) == zt.compress(big, 0, 2 << 20)
+    finally:
+        engine._active_engine = None

@@ -1,0 +1,512 @@
+"""Batched Huffman bundle: Moffat-Katajainen code lengths, Kraft-sum
+length limiting, canonical codewords, the code-length table's RLE
+statistics, the Zopfli histogram rewrite, the dynamic/static block cost
+estimators and the CL-mask search.
+
+Port of zultra_tpu.ops.entropy_jax in its scan form (the configuration
+the JAX package selects with ZULTRA_MK_IMPL=scan): the MK merge and
+parent-chain phases and the Kraft lengthen/shorten sweeps are Python
+loops over the (at most 288-entry) symbol axis with every histogram of
+the batch as a vector lane. Reference semantics: zultra
+src/huffman/huffencoder.c:157-346 and :446-735, src/blockdeflate.c
+:538-618. Every tie-break (sort by (weight, symbol), strict phase-1
+comparisons, the <=1-used-symbol quirk) is reproduced.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from zultra_tpu.constants import (
+    CODELEN_SYM_ORDER,
+    NCODELENSYMS,
+    NLITERALSYMS,
+    NOFFSETSYMS,
+    REV_MATCHLEN_SYMBOL_BITS,
+    REV_OFFSET_SYMBOL_BITS,
+    static_literal_code_lengths,
+)
+
+from .symbol_map import floor_log2
+
+INF32 = 2**30
+I32 = torch.int32
+I64 = torch.int64
+
+
+def _arange(n, dev, dtype=I32):
+    return torch.arange(n, dtype=dtype, device=dev)
+
+
+def _scatter_dump(shape, dev, idx, src, reduce, fill=0):
+    """Scatter ``src`` into a fresh (B, S + 1) tensor along dim 1 and
+    drop the last column: indices equal to S land in the dump column,
+    which is how the JAX package's out-of-range drops are expressed."""
+    B, S = shape
+    out = torch.full((B, S + 1), fill, dtype=src.dtype, device=dev)
+    if reduce == "set":
+        out.scatter_(1, idx.to(I64), src)
+    else:
+        out.scatter_reduce_(1, idx.to(I64), src, reduce)
+    return out[:, :S]
+
+
+def _lex_order(key: torch.Tensor) -> torch.Tensor:
+    """Indices sorting ``key`` ascending along dim 1, ties broken by
+    index: the order of lax.sort((key, iota), num_keys=2)."""
+    return torch.sort(key, dim=1, stable=True)[1]
+
+
+# ---------------------------------------------------------------------------
+# Moffat-Katajainen lengths
+# ---------------------------------------------------------------------------
+
+
+def mk_lengths(hist: torch.Tensor) -> torch.Tensor:
+    """Batched minimum-redundancy code lengths, UNLIMITED. hist (B, S)
+    int32 -> (B, S) int32; <=1 used symbol gives all zeros except
+    lengths[0] = 1."""
+    B, S = hist.shape
+    dev = hist.device
+    rows = _arange(B, dev, I64)
+    used = hist > 0
+    n_used = used.sum(dim=1, dtype=I32)
+
+    key = torch.where(used, hist, INF32).to(I32)
+    queue = _lex_order(key)
+    key_sorted = torch.gather(key, 1, queue)
+    # Column S is a dump slot for the writes of lanes that take no
+    # internal node (the JAX scan drops them).
+    a_ext = torch.zeros((B, S + 1), dtype=I32, device=dev)
+    a_ext[:, :S] = torch.where(key_sorted < INF32, key_sorted, 0)
+    a = a_ext[:, :S]
+
+    # Phase 1: two-queue merge over t = 0..S-2.
+    leaf = torch.zeros(B, dtype=I64, device=dev)
+    internal = torch.zeros(B, dtype=I64, device=dev)
+    n_used64 = n_used.to(I64)
+
+    def pick(t, w_acc, active):
+        nonlocal leaf, internal
+        av_leaf = a[rows, torch.clamp(leaf, 0, S - 1)]
+        av_int = a[rows, torch.clamp(internal, 0, S - 1)]
+        take_int = ((leaf >= n_used64) | ((internal < t) & (av_int < av_leaf))) & active
+        w_acc = w_acc + torch.where(take_int, av_int, av_leaf)
+        a_ext.scatter_(1, torch.where(take_int, internal, S)[:, None], t + 1)
+        internal = internal + take_int.to(I64)
+        leaf = leaf + (active & ~take_int).to(I64)
+        return w_acc
+
+    for t in range(S - 1):
+        active = t < n_used64 - 1
+        w = pick(t, torch.zeros(B, dtype=I32, device=dev), active)
+        w = pick(t, w, active)
+        a[:, t] = torch.where(active, w, a[:, t])
+
+    # Phase 2: internal depths via the parent chain (parents sit at
+    # larger indices, so a backward sweep resolves each in one step).
+    root = torch.clamp(n_used64 - 2, 0, S - 1)
+    a[rows, root] = 0
+    for t in range(S - 3, -1, -1):
+        active = t <= n_used64 - 3
+        parent = a[:, t].to(I64) - 1
+        pdepth = a[rows, torch.clamp(parent, 0, S - 1)]
+        a[:, t] = torch.where(active, pdepth + 1, a[:, t])
+
+    # Phase 3 (closed form): leaves_at[d] = 2 internal_at[d-1] -
+    # internal_at[d]; leaf depths fill sorted positions deepest-first.
+    sym = _arange(S, dev)[None, :]
+    t_in = sym < (n_used - 1)[:, None]
+    depth_clip = torch.clamp(a, 0, S - 1)
+    internal_at = _scatter_dump((B, S), dev, torch.where(t_in, depth_clip, S),
+                                torch.ones_like(a), "sum")
+    avail = torch.cat([torch.ones((B, 1), dtype=I32, device=dev), 2 * internal_at[:, :-1]], dim=1)
+    leaves_at = avail - internal_at
+    cum_excl = torch.cumsum(leaves_at, dim=1, dtype=I32) - leaves_at
+    fill = _scatter_dump((B, S), dev,
+                         torch.where(leaves_at > 0, torch.clamp(cum_excl, 0, S - 1), S),
+                         sym.expand(B, S).contiguous(), "amax", fill=-1)
+    depth_of_r = torch.cummax(fill, dim=1)[0]
+    r_of_i = torch.clamp(n_used[:, None] - 1 - sym, 0, S - 1)
+    len_sorted = torch.gather(depth_of_r, 1, r_of_i.to(I64))
+    len_sorted = torch.where(sym < n_used[:, None], len_sorted, 0)
+    lengths = torch.zeros((B, S), dtype=I32, device=dev).scatter_(1, queue, len_sorted)
+
+    few = (n_used <= 1)[:, None]
+    quirk = (sym == 0).to(I32).expand(B, S)
+    return torch.where(few, quirk, lengths)
+
+
+def limited_lengths(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Kraft-sum length limiting of unlimited MK lengths: clamp overlong
+    codes, lengthen the rarest symbols until the Kraft sum fits, then
+    re-shorten the most frequent while room remains. Only lanes with a
+    code longer than ``max_len`` change; the sweeps run on those alone."""
+    over = lengths.max(dim=1)[0] > max_len
+    if not bool(over.any()):
+        return lengths
+    lanes = torch.nonzero(over)[:, 0]
+    out = lengths.clone()
+    out[lanes] = _kraft_repair(lengths[lanes], max_len)
+    return out
+
+
+def _kraft_repair(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    B, S = lengths.shape
+    dev = lengths.device
+    rows = _arange(B, dev, I64)
+    full = 1 << max_len
+    used = lengths > 0
+    sym = _arange(S, dev)[None, :]
+    key = torch.where(used, lengths * S + sym, INF32)
+    order = _lex_order(key)  # unused symbols' order is irrelevant (masked)
+    n_used = used.sum(dim=1, dtype=I32)
+    lens = torch.clamp(torch.gather(lengths, 1, order), max=max_len).contiguous()
+    in_used = sym < n_used[:, None]
+    kraft = torch.where(in_used, full >> lens, 0).sum(dim=1, dtype=I32)
+
+    # Phase A: lengthen the rarest (descending sorted position).
+    for p in range(S - 1, -1, -1):
+        l = lens[:, p]
+        active = (p < n_used) & (kraft > full) & (l < max_len)
+        r = (full >> l) - (kraft - full)
+        l_new = torch.where(r <= 0, max_len,
+                            torch.maximum(l, max_len - floor_log2(torch.clamp(r, min=1))))
+        l_new = torch.where(active, torch.clamp(l_new, max=max_len), l)
+        kraft = kraft - (full >> l) + (full >> l_new)
+        lens[:, p] = l_new
+
+    # Phase B: re-shorten the most frequent (ascending sorted position).
+    for p in range(S):
+        l = lens[:, p]
+        active = p < n_used
+        u = full >> l
+        m = torch.clamp(full - kraft, min=0) // torch.clamp(u, min=1)
+        d = torch.where(active, floor_log2(m + 1), 0)
+        d = torch.minimum(d, torch.clamp(l - 1, min=0))
+        kraft = kraft + u * ((1 << d) - 1)
+        lens[:, p] = l - d
+
+    return torch.zeros((B, S), dtype=I32, device=dev).scatter_(
+        1, order, torch.where(in_used, lens, 0))
+
+
+def build_lengths(hist: torch.Tensor, max_len: int) -> torch.Tensor:
+    """MK lengths + Kraft limiting (build_dynamic_codewords' lengths)."""
+    return limited_lengths(mk_lengths(hist), max_len)
+
+
+def _reverse_bits16(word, nbits):
+    w = word
+    for lo, hi, sh in ((0x5555, 0xAAAA, 1), (0x3333, 0xCCCC, 2),
+                       (0x0F0F, 0xF0F0, 4), (0x00FF, 0xFF00, 8)):
+        w = ((w & lo) << sh) | ((w & hi) >> sh)
+    return torch.where(nbits > 0, w >> (16 - torch.clamp(nbits, max=16)), 0)
+
+
+def canonical_codewords(lengths: torch.Tensor) -> torch.Tensor:
+    """Canonical bit-reversed codewords over (length, symbol) order;
+    zero-length symbols get codeword 0."""
+    B, S = lengths.shape
+    dev = lengths.device
+    used = lengths > 0
+    MAXL = 16
+    lclip = torch.clamp(lengths, 0, MAXL)
+    cnt = _scatter_dump((B, MAXL + 1), dev, torch.where(used, lclip, 0),
+                        used.to(I32), "sum")
+    next_code = torch.zeros((B, MAXL + 1), dtype=I32, device=dev)
+    code = torch.zeros(B, dtype=I32, device=dev)
+    for d in range(1, MAXL + 1):
+        code = (code + cnt[:, d - 1]) << 1
+        next_code[:, d] = code
+    sym = _arange(S, dev)[None, :]
+    order = _lex_order(torch.where(used, lengths * S + sym, INF32))
+    pos = torch.empty((B, S), dtype=I32, device=dev).scatter_(1, order, sym.expand(B, S).contiguous())
+    cum_shorter = torch.cumsum(cnt, dim=1, dtype=I32) - cnt
+    rank = pos - torch.gather(cum_shorter, 1, lclip.to(I64))
+    word = torch.gather(next_code, 1, lclip.to(I64)) + rank
+    return torch.where(used, _reverse_bits16(word, lengths), 0)
+
+
+# ---------------------------------------------------------------------------
+# Code-length table RLE statistics
+# ---------------------------------------------------------------------------
+
+
+def _run_structure(lens: torch.Tensor, n_def: torch.Tensor):
+    """Maximal runs of each lane's first n_def entries: (is_start,
+    run_len) with run_len meaningful at starts."""
+    B, L = lens.shape
+    dev = lens.device
+    pos = _arange(L, dev)[None, :]
+    valid = pos < n_def[:, None]
+    prev = torch.cat([torch.full((B, 1), -1, dtype=lens.dtype, device=dev), lens[:, :-1]], dim=1)
+    is_start = valid & ((pos == 0) | (lens != prev))
+    nxt_c = torch.where(is_start, pos, INF32)
+    nxt_c = torch.cat([nxt_c[:, 1:], torch.full((B, 1), INF32, dtype=I32, device=dev)], dim=1)
+    nxt = torch.flip(torch.cummin(torch.flip(nxt_c, [1]), dim=1)[0], [1])
+    run_end = torch.minimum(nxt, n_def[:, None])
+    return is_start, torch.where(is_start, run_end - pos, 0)
+
+
+def _run_counts(value, r, mask: int):
+    """Per-run RLE emission counts under a static ``mask`` (walk_var_
+    lengths): (n16, n17, n18, lit_count, lit_value)."""
+    zero = value == 0
+    zeros = torch.zeros_like(r)
+    r3 = r >= 3
+    if mask & 4:
+        ge11 = r >= 11
+        q = r // 138
+        rem = r % 138
+        n18 = torch.where(r3 & ge11, q + (rem >= 11).to(I32), 0)
+        after18 = torch.where(r3 & ge11, torch.where(rem >= 11, 0, rem), r)
+    else:
+        n18 = zeros
+        after18 = r
+    if mask & 2:
+        q10 = after18 // 10
+        rem10 = after18 % 10
+        n17 = torch.where(r3 & (after18 >= 3), q10 + (rem10 >= 3).to(I32), 0)
+        after17 = torch.where(r3 & (after18 >= 3), torch.where(rem10 >= 3, 0, rem10), after18)
+    else:
+        n17 = zeros
+        after17 = after18
+    z_lit = after17
+
+    vclamp = torch.clamp(value, max=15)
+    rp = r - 1
+    if mask & 1:
+        s7 = (rp == 7) if not (mask & 8) else torch.zeros_like(rp, dtype=torch.bool)
+        s8 = (rp == 8) if not (mask & 16) else torch.zeros_like(rp, dtype=torch.bool)
+        q6 = rp // 6
+        rem6 = rp % 6
+        n16_gen = q6 + (rem6 >= 3).to(I32)
+        left_gen = torch.where(rem6 < 3, rem6, 0)
+        n16 = torch.where(s7 | s8, 2, n16_gen)
+        nz_left = torch.where(s7 | s8, 0, left_gen)
+    else:
+        n16 = zeros
+        nz_left = rp
+    nz_lit = 1 + nz_left
+
+    n16 = torch.where(zero, 0, n16)
+    n17 = torch.where(zero, n17, 0)
+    n18 = torch.where(zero, n18, 0)
+    lit_count = torch.where(zero, z_lit, nz_lit)
+    lit_value = torch.where(zero, 0, vclamp)
+    return n16, n17, n18, lit_count, lit_value
+
+
+def _rle_runs(lens, n_def, mask):
+    is_start, r = _run_structure(lens, n_def)
+    counts = _run_counts(lens, torch.clamp(r, min=1), mask)
+    n16, n17, n18, lit_c = (torch.where(is_start, x, 0) for x in counts[:4])
+    return is_start, n16, n17, n18, lit_c, counts[4]
+
+
+def rle_histogram(lens: torch.Tensor, n_def: torch.Tensor, mask: int) -> torch.Tensor:
+    """CL-symbol histogram of the RLE walk over each lane's lengths
+    (update_var_lengths_entropy). lens (B, L), n_def (B,) -> (B, 19)."""
+    B = lens.shape[0]
+    is_start, n16, n17, n18, lit_c, lit_v = _rle_runs(lens, n_def, mask)
+    idx = torch.where(is_start, torch.clamp(lit_v, 0, 15), NCODELENSYMS)
+    hist = _scatter_dump((B, NCODELENSYMS), lens.device, idx, lit_c, "sum")
+    hist[:, 16] += n16.sum(dim=1, dtype=I32)
+    hist[:, 17] += n17.sum(dim=1, dtype=I32)
+    hist[:, 18] += n18.sum(dim=1, dtype=I32)
+    return hist
+
+
+def rle_bits(lens: torch.Tensor, n_def: torch.Tensor, te_lens: torch.Tensor,
+             mask: int) -> torch.Tensor:
+    """Bit size of the RLE-coded table under CL lengths ``te_lens``
+    (get_var_lengths_size). -> (B,)."""
+    _, n16, n17, n18, lit_c, lit_v = _rle_runs(lens, n_def, mask)
+    lit_len = torch.gather(te_lens, 1, torch.clamp(lit_v, 0, 15).to(I64))
+    bits = (lit_c * lit_len).sum(dim=1, dtype=I32)
+    bits = bits + n16.sum(dim=1, dtype=I32) * (te_lens[:, 16] + 2)
+    bits = bits + n17.sum(dim=1, dtype=I32) * (te_lens[:, 17] + 3)
+    bits = bits + n18.sum(dim=1, dtype=I32) * (te_lens[:, 18] + 7)
+    return bits
+
+
+def raw_table_size(te_lens: torch.Tensor) -> torch.Tensor:
+    """CL lengths in transmission order, trailing zeros trimmed, >= 4."""
+    order = torch.as_tensor(np.asarray(CODELEN_SYM_ORDER, dtype=np.int64), device=te_lens.device)
+    in_order = te_lens[:, order]
+    posp1 = _arange(NCODELENSYMS, te_lens.device)[None, :] + 1
+    last = torch.where(in_order != 0, posp1, 0).max(dim=1)[0]
+    return torch.clamp(last, min=4)
+
+
+def defined_count(lens: torch.Tensor, min_symbols: int) -> torch.Tensor:
+    S = lens.shape[1]
+    posp1 = _arange(S, lens.device)[None, :] + 1
+    last = torch.where(lens != 0, posp1, 0).max(dim=1)[0]
+    return torch.clamp(last, min=min_symbols)
+
+
+# ---------------------------------------------------------------------------
+# Zopfli-style histogram rewrite
+# ---------------------------------------------------------------------------
+
+
+def optimize_for_rle(counts: torch.Tensor) -> torch.Tensor:
+    """optimize_histogram_for_rle (huffman.py:367-419; reference
+    huffutils.c:34-114), batched: a decision sweep over the ORIGINAL
+    counts, then one vectorized rewrite of the decided segments."""
+    B, L = counts.shape
+    dev = counts.device
+    pos = _arange(L, dev)[None, :]
+    eff = torch.where(counts != 0, pos + 1, 0).max(dim=1)[0]
+    in_len = pos < eff[:, None]
+
+    # good_for_rle: zero runs >= 5, nonzero runs >= 7 (within eff).
+    prev = torch.cat([torch.full((B, 1), -1, dtype=counts.dtype, device=dev), counts[:, :-1]], dim=1)
+    is_start = in_len & ((pos == 0) | (counts != prev))
+    nxt_c = torch.where(is_start, pos, INF32)
+    nxt_c = torch.cat([nxt_c[:, 1:], torch.full((B, 1), INF32, dtype=I32, device=dev)], dim=1)
+    nxt = torch.flip(torch.cummin(torch.flip(nxt_c, [1]), dim=1)[0], [1])
+    run_len = torch.minimum(nxt, eff[:, None]) - pos
+    good_start = is_start & torch.where(counts == 0, run_len >= 5, run_len >= 7)
+    start_pos = torch.cummax(torch.where(is_start, pos, -1), dim=1)[0]
+    good_at = torch.zeros((B, L), dtype=I32, device=dev).scatter_reduce_(
+        1, torch.where(is_start, pos, 0).to(I64).expand(B, L).contiguous(),
+        good_start.to(I32), "amax")
+    good = in_len & (torch.gather(good_at, 1, torch.clamp(start_pos, 0, L - 1).to(I64)) > 0)
+
+    # Decision sweep over i = 0..eff inclusive.
+    c_ext = torch.cat([counts, torch.zeros((B, 4), dtype=counts.dtype, device=dev)], dim=1)
+    limit4 = (c_ext[:, :L] + c_ext[:, 1:L + 1] + c_ext[:, 2:L + 2] + c_ext[:, 3:L + 3] + 2) // 4
+    good_ext = torch.cat([good, torch.zeros((B, 1), dtype=torch.bool, device=dev)], dim=1)
+    stride = torch.zeros(B, dtype=I32, device=dev)
+    limit = c_ext[:, 0].to(I32)
+    total = torch.zeros(B, dtype=I32, device=dev)
+    wr, wstart, wval = [], [], []
+    for i in range(L + 1):
+        at_end = i == eff
+        inside = i < eff
+        ci = c_ext[:, i]
+        boundary = at_end | (inside & (good_ext[:, i] | ((ci - limit).abs() >= 4)))
+        do_write = boundary & ((stride >= 4) | ((stride >= 3) & (total == 0)))
+        val = torch.clamp((total + stride // 2) // torch.clamp(stride, min=1), min=1)
+        val = torch.where(total == 0, 0, val)
+        wr.append(do_write & (i <= eff))
+        wstart.append(i - stride)
+        wval.append(val)
+        lim_new = torch.where(i < eff - 3, limit4[:, min(i, L - 1)],
+                              torch.where(inside, ci, 0))
+        limit = torch.where(boundary, lim_new, limit)
+        stride = torch.where(boundary, 0, stride) + (i <= eff).to(I32)
+        total = torch.where(boundary, 0, total) + torch.where(inside, ci, 0)
+    wr = torch.stack(wr, dim=1)
+    wstart = torch.stack(wstart, dim=1)
+    wval = torch.stack(wval, dim=1)
+    wend = _arange(L + 1, dev)[None, :].expand(B, L + 1)
+
+    # Rewrite segments [wstart, wend): each position takes the latest
+    # write-start at or before it (segments are disjoint).
+    ws = torch.where(wr, torch.clamp(wstart, 0, L - 1), 0).to(I64)
+    end_at = torch.full((B, L), -1, dtype=I32, device=dev).scatter_reduce_(
+        1, ws, torch.where(wr, wend, -1), "amax")
+    val_at = torch.full((B, L), -1, dtype=I32, device=dev).scatter_reduce_(
+        1, ws, torch.where(wr, wval, -1), "amax")
+    wkey = torch.cummax(torch.where(end_at >= 0, pos, -1), dim=1)[0]
+    wkey_c = torch.clamp(wkey, 0, L - 1).to(I64)
+    covered = (wkey >= 0) & (pos < torch.gather(end_at, 1, wkey_c))
+    fill_val = torch.gather(val_at, 1, wkey_c)
+    return torch.where((eff[:, None] > 0) & covered, fill_val, counts)
+
+
+# ---------------------------------------------------------------------------
+# Block cost estimators and the CL-mask search
+# ---------------------------------------------------------------------------
+
+
+def _lit_extra(dev):
+    rev = np.asarray(REV_MATCHLEN_SYMBOL_BITS, dtype=np.int32)
+    extra = np.zeros(NLITERALSYMS, np.int32)
+    extra[257 : 257 + rev.shape[0]] = rev
+    # The reference's symbol-cost loops cover 0..285 only: symbols 286
+    # and 287 are not counted (src/blockdeflate.c:577-581).
+    counted = np.arange(NLITERALSYMS) < 257 + rev.shape[0]
+    return (torch.as_tensor(extra, device=dev)[None, :],
+            torch.as_tensor(counted, device=dev)[None, :],
+            torch.as_tensor(np.asarray(REV_OFFSET_SYMBOL_BITS, np.int32), device=dev)[None, :])
+
+
+def static_cost(lit_hist: torch.Tensor, off_hist: torch.Tensor) -> torch.Tensor:
+    """evaluate_static_cost (reference src/blockdeflate.c:538-566)."""
+    dev = lit_hist.device
+    extra, counted, rev_off = _lit_extra(dev)
+    static_lit = torch.as_tensor(np.asarray(static_literal_code_lengths(), np.int32), device=dev)
+    lit_counted = torch.where(counted, lit_hist, 0)
+    cost = (lit_counted * (static_lit[None, :] + extra)).sum(dim=1, dtype=I32)
+    cost = cost + (off_hist * (5 + rev_off)).sum(dim=1, dtype=I32)
+    return cost + 3
+
+
+def _concat_lengths(lit_len: torch.Tensor, off_len: torch.Tensor):
+    """concat(lit_len[:n_lit], off_len[:n_off]) as fixed (B, 320) + n_def."""
+    n_lit = defined_count(lit_len, 257)
+    n_off = defined_count(off_len, 1)
+    L = NLITERALSYMS + NOFFSETSYMS
+    j = _arange(L, lit_len.device)[None, :]
+    from_off = j >= n_lit[:, None]
+    oidx = torch.clamp(j - n_lit[:, None], 0, NOFFSETSYMS - 1)
+    lens = torch.where(
+        from_off,
+        torch.gather(off_len, 1, oidx.to(I64)),
+        torch.gather(lit_len, 1, torch.clamp(j, 0, NLITERALSYMS - 1).to(I64).expand(lit_len.shape[0], L)),
+    )
+    return lens, n_lit, n_off, n_lit + n_off
+
+
+def _symbol_and_table_cost(lit_hist, off_hist, lit_len, off_len):
+    extra, counted, rev_off = _lit_extra(lit_hist.device)
+    lit_counted = torch.where(counted, lit_hist, 0)
+    cost = (lit_counted * (lit_len + extra)).sum(dim=1, dtype=I32)
+    cost = cost + (off_hist * (off_len + rev_off)).sum(dim=1, dtype=I32)
+    lens, _, _, n_def = _concat_lengths(lit_len, off_len)
+    te_len = mk_lengths(rle_histogram(lens, n_def, 7))
+    cost = cost + 5 + 5 + 4
+    cost = cost + 3 * raw_table_size(te_len)
+    cost = cost + rle_bits(lens, n_def, te_len, 31)
+    return cost + 3
+
+
+def dynamic_cost_given(lit_hist, off_hist, lit_len, off_len) -> torch.Tensor:
+    """evaluate_dynamic_cost with GIVEN (limited) code lengths."""
+    return _symbol_and_table_cost(lit_hist, off_hist, lit_len, off_len)
+
+
+def dynamic_cost(lit_hist: torch.Tensor, off_hist: torch.Tensor) -> torch.Tensor:
+    """estimated_dynamic_cost_of_entropy: unlimited MK lengths from the
+    histograms, symbol cost + dynamic table cost + 3 header bits."""
+    return _symbol_and_table_cost(lit_hist, off_hist, mk_lengths(lit_hist),
+                                  mk_lengths(off_hist))
+
+
+MASK_ORDER = tuple(list(range(8)) + list(range(9, 32, 2)))
+
+
+def mask_search(lit_len: torch.Tensor, off_len: torch.Tensor):
+    """Evaluate every CL-code mask in the reference order (0..7, then
+    odd 9..31); later masks win cost ties. Returns (best_mask (B,),
+    cl_len (B, 19), n_lit, n_off)."""
+    lens, n_lit, n_off, n_def = _concat_lengths(lit_len, off_len)
+    costs, cl_lens = [], []
+    for mask in MASK_ORDER:
+        cl = limited_lengths(mk_lengths(rle_histogram(lens, n_def, mask)), 7)
+        costs.append(rle_bits(lens, n_def, cl, mask))
+        cl_lens.append(cl)
+    cost_m = torch.stack(costs, dim=1)
+    cl_m = torch.stack(cl_lens, dim=1)
+    best = cost_m.min(dim=1)[0]
+    mi = _arange(len(MASK_ORDER), lit_len.device)[None, :]
+    midx = torch.where(cost_m == best[:, None], mi, -1).max(dim=1)[0]
+    mask_arr = torch.as_tensor(np.asarray(MASK_ORDER, np.int32), device=lit_len.device)
+    cl_sel = cl_m[_arange(lens.shape[0], lit_len.device, I64), midx.to(I64)]
+    return mask_arr[midx.to(I64)], cl_sel, n_lit, n_off

@@ -1,0 +1,90 @@
+"""Prefix-doubling suffix arrays and rank tables for a batch of segments.
+
+Manber-Myers doubling: ceil(log2 n) rounds of (sort by (rank_i,
+rank_{i+k}), re-rank). Each round is one stable sort of packed int64
+keys over every segment of the batch at once, a compare, a cumsum and a
+scatter back to position order. Port of zultra_tpu.ops.suffix_jax's
+``_num_levels`` and ``_doubling_rounds``; the suffix array is unique, so
+both produce the same permutation.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def num_levels(n: int) -> int:
+    return max(1, int(math.ceil(math.log2(max(n, 2)))))
+
+
+def _sort_rerank(rank: torch.Tensor, rank2: torch.Tensor, base: int):
+    """One doubling round: suffix order by (rank, rank2), then the new
+    ranks in position order and a per-segment all-distinct flag.
+
+    The two keys pack into one int64 (rank * base + rank2 + 1, with
+    rank2 >= -1 and both below ``base``); a stable sort then breaks ties
+    by position, which is the lexicographic (rank, rank2, idx) order."""
+    key = rank.to(torch.int64) * base + (rank2.to(torch.int64) + 1)
+    k_sorted, sa = torch.sort(key, dim=1, stable=True)
+    diff = torch.zeros_like(k_sorted, dtype=torch.int32)
+    diff[:, 1:] = (k_sorted[:, 1:] != k_sorted[:, :-1]).to(torch.int32)
+    r_sorted = torch.cumsum(diff, dim=1, dtype=torch.int32)
+    n = rank.shape[1]
+    distinct = r_sorted[:, -1] == n - 1
+    new_rank = torch.empty_like(r_sorted)
+    new_rank.scatter_(1, sa, r_sorted)
+    return sa.to(torch.int32), new_rank, distinct
+
+
+def doubling_rounds(data: torch.Tensor, store_levels: int | None = None):
+    """data: (S, n) int32 symbols, each below 256 + n (bytes plus unique
+    sentinels). Returns (sa (S, n) int32, ranks (store+1, S, n) int32)
+    where ranks[l] compares 2^l-grams (ranks[0] is the data itself).
+
+    Rounds past ``store_levels`` run only until every segment's ranks
+    are distinct; once they are, further rounds are identities."""
+    S, n = data.shape
+    levels = num_levels(n)
+    if store_levels is None or store_levels > levels:
+        store_levels = levels
+    base = n + 257
+    neg = torch.full((S, n), -1, dtype=torch.int32, device=data.device)
+
+    def shifted(rank, k):
+        if k >= n:
+            return neg
+        return torch.cat([rank[:, k:], neg[:, :k]], dim=1)
+
+    rank = data.to(torch.int32)
+    rows = [rank]
+    sa = None
+    distinct = None
+    for level in range(min(levels, store_levels)):
+        sa, rank, distinct = _sort_rerank(rank, shifted(rank, 1 << level), base)
+        rows.append(rank)
+    k = 1 << store_levels
+    while levels > store_levels and k < (1 << levels) and not bool(distinct.all()):
+        sa, rank, distinct = _sort_rerank(rank, shifted(rank, k), base)
+        k *= 2
+    return sa, torch.stack(rows)
+
+
+def adjacent_lcp(sa: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
+    """lcp(SA[r-1], SA[r]) for r in 1..n-1 by descending the rank tables
+    from the widest stored gram to single bytes. (S, n-1) int32."""
+    n = sa.shape[1]
+    i_pos = sa[:, 1:]
+    j_pos = sa[:, :-1]
+    lcp = torch.zeros_like(i_pos)
+    levels = ranks.shape[0] - 1
+    for level in range(levels, -1, -1):
+        width = 1 << level
+        ia = i_pos + lcp
+        ja = j_pos + lcp
+        ok = (ia + width <= n) & (ja + width <= n)
+        ra = torch.gather(ranks[level], 1, torch.clamp(ia, 0, n - 1).to(torch.int64))
+        rb = torch.gather(ranks[level], 1, torch.clamp(ja, 0, n - 1).to(torch.int64))
+        lcp = torch.where(ok & (ra == rb), lcp + width, lcp)
+    return lcp
