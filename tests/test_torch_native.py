@@ -37,6 +37,22 @@ def test_framings_equal_native(native, flags, seed):
     assert _decode(got, flags) == data
 
 
+@pytest.mark.parametrize("name", ["one_byte", "one_past_a_window", "zeros", "period6"])
+def test_edge_inputs_equal_native(native, name):
+    """A one-byte stream, a last window of one byte, a long zero run and
+    a short-period run (the inputs where the JAX staircase needs its
+    host fallback)."""
+    data = {
+        "one_byte": b"a",
+        "one_past_a_window": mixed_corpus(32769, seed=58),
+        "zeros": bytes(70000),
+        "period6": np.tile(np.frombuffer(b"abcabd", np.uint8), 9000).tobytes(),
+    }[name]
+    got = compress(data, 2, 32768, device="cpu")
+    assert got == zt.compress(data, 2, 32768)
+    assert _decode(got, 2) == data
+
+
 def test_dictionary_equals_native(native):
     dictionary = mixed_corpus(3000, seed=54)
     data = dictionary[1000:] + mixed_corpus(20000, seed=55)
