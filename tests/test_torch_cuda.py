@@ -14,8 +14,8 @@ import zultra_tpu as zt
 from zultra_tpu import engine
 from zultra_tpu_torch import compress
 from zultra_tpu_torch.corpus import lz_data, mixed_corpus
-from zultra_tpu_torch.ops import block_torch, chain_cuda, dp_cuda, walk_cuda
-from zultra_tpu_torch.ops.entropy_torch import build_lengths
+from zultra_tpu_torch.ops import block_torch, chain_cuda, dp_cuda, mk_cuda, walk_cuda
+from zultra_tpu_torch.ops.entropy_torch import build_lengths, kraft_inputs, mk_inputs, mk_lengths
 from zultra_tpu_torch.ops.matchfinder_torch import (
     HALO,
     SEG_CORE,
@@ -74,6 +74,28 @@ def test_dp_and_chain_kernels_equal_plain(cuda):
     assert torch.equal(marks.cpu(),
                        chain_cuda.chain_marks_plain(step.cpu(), start.cpu(), n_real.cpu()))
     assert bool(tok.any())
+
+
+@pytest.mark.parametrize("S,B", [(19, 805), (32, 4099), (288, 70)])
+def test_mk_and_kraft_kernels_equal_plain(cuda, S, B):
+    """Weights from 1 to 2^20 on a random share of the symbols (some
+    lanes empty or single-symbol), so MK gives codes far past the limit
+    and Kraft repairs them; B is no multiple of 32."""
+    rng = np.random.default_rng(S)
+    w = (2 ** rng.integers(0, 21, (B, S))).astype(np.int32)
+    h = np.where(rng.random((B, S)) < rng.random((B, 1)), w, 0).astype(np.int32)
+    hist = torch.from_numpy(h).to(cuda)
+    a0, n_used, _ = mk_inputs(hist)
+    got = mk_cuda.mk_phase12(a0, n_used)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), mk_cuda.mk_phase12_plain(a0.cpu(), n_used.cpu()))
+    for max_len in (7, 15):
+        lens, n_used, kraft0, _, _ = kraft_inputs(mk_lengths(hist), max_len)
+        assert bool((kraft0 > (1 << max_len)).any())
+        got = mk_cuda.kraft_limit(lens, n_used, kraft0, max_len)
+        torch.cuda.synchronize()
+        want = mk_cuda.kraft_limit_plain(lens.cpu(), n_used.cpu(), kraft0.cpu(), max_len)
+        assert torch.equal(got.cpu(), want)
 
 
 def test_one_shot_equals_native(cuda):

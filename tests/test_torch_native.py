@@ -11,8 +11,9 @@ import pytest
 
 import zultra_tpu as zt
 from zultra_tpu import engine
-from zultra_tpu.stream import FINALIZE, Stream, StreamError
+from zultra_tpu.stream import FINALIZE, Stream
 from zultra_tpu_torch import DeviceWindowEngine, compress
+from zultra_tpu_torch.stream import StreamError
 from zultra_tpu_torch.corpus import lz_data, mixed_corpus
 
 

@@ -1,12 +1,12 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-The kernels have a plain C interface: ``nvcc`` compiles every
-``csrc/*.cu`` into one shared library for ``sm_90a`` (Hopper), and
-ctypes loads it. The library lands in ``build/zultra_tpu_torch/`` under
-the repository root, named by a hash of the sources so that an edited
-kernel is never served from a stale build. Nothing is compiled at
-import time: the first CUDA launch builds, later ones reuse the loaded
-library.
+The kernels have a plain C interface: one ``nvcc`` per ``csrc/*.cu``
+compiles it for ``sm_90a`` (Hopper), all started together, and one more
+links the objects into a shared library that ctypes loads. The build
+lands in ``build/zultra_tpu_torch/`` under the repository root, named by
+a hash of the sources so that an edited kernel is never served from a
+stale build. Nothing is compiled at import time: the first CUDA launch
+builds, later ones reuse the loaded library.
 """
 
 from __future__ import annotations
@@ -22,8 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "zultra_tpu_torch"
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lib = None
@@ -36,6 +35,8 @@ _SIGNATURES = {
     "zt_walk": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "zt_dp": [_VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
     "zt_chain": [_VP, _VP, _VP, _VP, _I, _I, _VP],
+    "zt_mk12": [_VP, _VP, _VP, _I, _I, _VP],
+    "zt_kraft": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
 }
 
 
@@ -60,6 +61,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libzt_kernels-{digest.hexdigest()[:12]}.so"
 
 
+def _run_all(cmds: list) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{log}")
+
+
 def build() -> Path:
     """Compile csrc/*.cu unless the hashed library already exists."""
     global build_seconds
@@ -67,13 +79,20 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                  for src, o in zip(sources, objects)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
+        os.replace(tmp, out)
+    finally:
+        for o in objects:
+            o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     return out
 

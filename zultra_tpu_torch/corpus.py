@@ -2,11 +2,15 @@
 
 ``mixed_corpus`` interleaves word-salad text with binary-like records
 (little-endian integer tables with small deltas, repeated structs with a
-few varying fields), made from a numpy seed alone: it reads no file, so
-every machine builds the same bytes.
+few varying fields), ``random_bytes`` is incompressible; both are made
+from a numpy seed alone and read no file, so every machine builds the
+same bytes. ``from_recipe`` builds either from a JSON-able
+[name, size, seed] triple (the form ``smoke_golden.json`` records).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -84,3 +88,31 @@ def lz_data(size: int, seed: int, alpha: int = 256, p_match: float = 0.3) -> np.
             out[i : i + ln] = rng.integers(0, alpha, ln)
             i += ln
     return out
+
+
+def random_bytes(size: int, seed: int = 0) -> bytes:
+    """``size`` uniformly random bytes (incompressible: stored blocks)."""
+    return np.random.default_rng(seed).integers(0, 256, size, np.uint8).tobytes()
+
+
+RECIPES = {"mixed_corpus": mixed_corpus, "random_bytes": random_bytes}
+
+
+@functools.lru_cache(maxsize=2)
+def _build(name: str, size: int, seed: int) -> bytes:
+    return RECIPES[name](size, seed)
+
+
+def from_recipe(recipe) -> bytes:
+    """[name, size, seed] -> the corpus ``RECIPES[name](size, seed)``."""
+    name, size, seed = recipe
+    return _build(name, size, seed)
+
+
+def case_inputs(case: dict):
+    """(data, dictionary or None) of one ``smoke_golden.json`` case: the
+    slices ``input`` and ``dictionary`` of its recipe's corpus."""
+    corpus = from_recipe(case["recipe"])
+    lo, hi = case["input"]
+    dic = case["dictionary"]
+    return corpus[lo:hi], (corpus[dic[0] : dic[1]] if dic else None)

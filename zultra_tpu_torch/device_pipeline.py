@@ -3,13 +3,15 @@
 writes the framing, the table bits and the ordered splice of the packed
 token words.
 
-Port of the device half of zultra_tpu.device_pipeline
-(``_begin_windows_batched``, ``compress_device``, ``DeviceWindowEngine``;
-no mesh). The host half — ``emit_window_from_plan``,
-``write_block_from_plan``, ``put_packed_bits`` and ``_WindowPlan`` — is
-the JAX package's own numpy code, imported as it is, so window cuts,
-history slides, BFINAL placement, the stored fallback and the framing
-are the same code for both packages.
+Port of zultra_tpu/device_pipeline.py for one device (no mesh). The
+device half (``_begin_windows_batched``, ``compress_device``,
+``DeviceWindowEngine``) is written in PyTorch. The host half
+(``put_packed_bits``, ``_encoder_from_lengths``,
+``write_block_from_plan``, ``_WindowPlan`` and
+``emit_window_from_plan``, device_pipeline.py:39-105 and :176-227) is a
+numpy copy of the JAX package's own, so window cuts, history slides,
+BFINAL placement, the stored fallback and the framing are the same code
+in both packages.
 """
 
 from __future__ import annotations
@@ -17,16 +19,153 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zultra_tpu import frame
-from zultra_tpu.constants import HISTORY_SIZE
-from zultra_tpu.device_pipeline import _WindowPlan, emit_window_from_plan
-from zultra_tpu.stream import StreamError, clamp_block_size, memory_bound
-
+from . import frame
+from .bitwriter import BitWriter, BitWriterError
+from .constants import (
+    HISTORY_SIZE,
+    NCODELENBITS,
+    NCODELENSYMS,
+    NVALIDLITERALSYMS,
+    NVALIDOFFSETSYMS,
+)
+from .huffman import HuffmanEncoder, write_var_lengths
 from .ops.block_torch import plan_blocks_device_multi
 from .ops.matchfinder_torch import HALO, match_tables_device_stacked
 from .ops.split_torch import input_cap, split_batch, split_bucket, trig_cap_for
+from .stream import StreamError, clamp_block_size, memory_bound
 
 WINDOWS_PER_BATCH = 16  # windows planned together in one device batch
+
+
+# ---------------------------------------------------------------------------
+# Host half: table bits and the ordered bit-phase splice
+# ---------------------------------------------------------------------------
+
+
+def put_packed_bits(writer: BitWriter, words: np.ndarray, total_bits: int) -> None:
+    """Append an LSB-first packed bitstream (uint32 words, bits beyond
+    ``total_bits`` zero) at the writer's current bit phase — the
+    vectorized equivalent of ``total_bits`` put_bits calls."""
+    if total_bits == 0:
+        return
+    phase = writer.bits_count
+    n_in = (total_bits + 7) // 8
+    b = np.ascontiguousarray(words).view(np.uint8)[:n_in]
+    x = np.zeros(n_in + 1, np.uint16)
+    x[:n_in] = b.astype(np.uint16) << phase
+    if phase:
+        x[1:] |= b.astype(np.uint16) >> (8 - phase)
+    x[0] |= writer.bits_data
+    out_bytes = (x & 0xFF).astype(np.uint8)
+
+    T = phase + total_bits
+    full, left = T // 8, T & 7
+    if writer.offset + full > writer.max_offset:
+        raise BitWriterError("output buffer overflow")
+    writer.out[writer.offset : writer.offset + full] = out_bytes[:full].tobytes()
+    writer.offset += full
+    writer.bits_data = int(out_bytes[full]) & ((1 << left) - 1) if left else 0
+    writer.bits_count = left
+
+
+def _encoder_from_lengths(n_symbols: int, max_code_length: int, lengths) -> HuffmanEncoder:
+    """Rebuild an encoder (canonical codewords) from final code lengths —
+    the 19-symbol CL table is the only alphabet the host still issues."""
+    enc = HuffmanEncoder(n_symbols, max_code_length, 0)
+    enc.code_length[:n_symbols] = [int(x) for x in lengths]
+    used = [i for i in range(n_symbols) if enc.code_length[i]]
+    enc._issue_canonical(sorted(used, key=lambda i: (enc.code_length[i], i)))
+    return enc
+
+
+def write_block_from_plan(plan: dict, writer: BitWriter) -> None:
+    """Emit one planned block's content (tables + tokens) after the
+    caller's BFINAL/BTYPE bits (reference src/blockdeflate.c:958-997)."""
+    if plan["is_dynamic"]:
+        n_lit, n_off = plan["n_lit"], plan["n_off"]
+        te = _encoder_from_lengths(NCODELENSYMS, 7, plan["cl_len"])
+        n_cl = te.get_raw_table_size()
+        if n_lit > NVALIDLITERALSYMS or n_off > NVALIDOFFSETSYMS or n_cl > NCODELENSYMS:
+            raise ValueError("invalid table sizes")
+        writer.put_bits(n_lit - 257, 5)
+        writer.put_bits(n_off - 1, 5)
+        writer.put_bits(n_cl - 4, 4)
+        te.write_raw_table(NCODELENBITS, n_cl, writer)
+        code_lengths = [int(x) for x in plan["lit_len"][:n_lit]] + [
+            int(x) for x in plan["off_len"][:n_off]
+        ]
+        write_var_lengths(te, n_lit + n_off, code_lengths, plan["best_mask"], writer)
+    put_packed_bits(writer, plan["words"], plan["total_bits"])
+
+
+class _WindowPlan:
+    __slots__ = ("plans", "block_spans", "window", "prev", "in_size")
+
+    def __init__(self, plans, block_spans, window, prev, in_size):
+        self.plans = plans
+        self.block_spans = block_spans
+        self.window = window
+        self.prev = prev
+        self.in_size = in_size
+
+
+def emit_window_from_plan(handle: _WindowPlan, window_is_last: bool,
+                          out: bytearray, bits_data: int, bits_count: int):
+    """Ordered, bit-phase-dependent emission of a planned window
+    (reference src/libzultra.c:309-402), including the stored-block
+    fallback."""
+    writer = BitWriter(out, 0, len(out))
+    writer.bits_data = bits_data
+    writer.bits_count = bits_count
+
+    n_blocks = len(handle.block_spans)
+    for i, ((s, e), plan) in enumerate(zip(handle.block_spans, handle.plans)):
+        block_size = e - s
+        is_final = 1 if (window_is_last and i == n_blocks - 1) else 0
+        saved = writer.state()
+        writer.put_bits(is_final, 1)
+        writer.put_bits(1 + (1 if plan["is_dynamic"] else 0), 2)
+        prev_offset = writer.get_offset()
+        try:
+            write_block_from_plan(plan, writer)
+            expanded = (writer.get_offset() - prev_offset) > block_size
+        except BitWriterError:
+            expanded = True
+
+        if expanded:
+            writer.restore(saved)
+            sub_offset = 0
+            remaining = block_size
+            while remaining:
+                sub_size = min(remaining, 65535)
+                sub_final = is_final if sub_size == remaining else 0
+                writer.put_bits(sub_final, 1)
+                writer.put_bits(0, 2)
+                writer.flush_bits()
+                writer.put_bytes(
+                    bytes(
+                        [
+                            sub_size & 0xFF,
+                            (sub_size >> 8) & 0xFF,
+                            (sub_size & 0xFF) ^ 0xFF,
+                            ((sub_size >> 8) & 0xFF) ^ 0xFF,
+                        ]
+                    )
+                )
+                writer.put_bytes(
+                    handle.window[s + sub_offset : s + sub_offset + sub_size].tobytes()
+                )
+                sub_offset += sub_size
+                remaining -= sub_size
+
+    if window_is_last:
+        writer.flush_bits()
+    return writer.get_offset(), writer.bits_data, writer.bits_count
+
+
+# ---------------------------------------------------------------------------
+# Device half
+# ---------------------------------------------------------------------------
 
 
 def begin_windows_batched(corpus: np.ndarray, spans, mbs: int, device) -> list:
@@ -131,7 +270,8 @@ def compress_device(data: bytes, flags: int = 0, max_block_size: int = 0,
 
 
 class DeviceWindowEngine:
-    """Engine for zultra_tpu's ``Stream``: one-shot compression goes
+    """Engine for zultra_tpu's ``Stream`` (the port imports nothing of
+    it; the engine contract is duck-typed): one-shot compression goes
     through ``compress_device``; the per-window contract plans each
     window alone through ``begin_windows_batched``. Attach it with
     ``stream.engine = DeviceWindowEngine(device)``."""

@@ -1,4 +1,30 @@
 """Device stages of the port: symbol maps, suffix arrays, match tables,
 the Huffman bundle, the splitter, the block planner, and the wrappers of
-the walk, DP and chain kernels. Nothing here imports at package load;
-each module is imported where it is used."""
+the walk, DP, chain, MK and Kraft kernels. Nothing here imports at
+package load; each module is imported where it is used."""
+
+# kernel name -> (wrapper module, its launch counter)
+_COUNTERS = {
+    "walk": ("walk_cuda", "launches"),
+    "dp": ("dp_cuda", "launches"),
+    "chain": ("chain_cuda", "launches"),
+    "mk12": ("mk_cuda", "mk12_launches"),
+    "kraft": ("mk_cuda", "kraft_launches"),
+}
+
+
+def _counter(name: str):
+    import importlib
+
+    module, attr = _COUNTERS[name]
+    return importlib.import_module(f"{__name__}.{module}"), attr
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches since the last reset} for every kernel."""
+    return {name: getattr(*_counter(name)) for name in _COUNTERS}
+
+
+def reset_launch_counts() -> None:
+    for name in _COUNTERS:
+        setattr(*_counter(name), 0)

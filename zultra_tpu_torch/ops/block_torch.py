@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zultra_tpu.constants import (
+from ..constants import (
     MAX_OFFSET,
     MIN_MATCH_SIZE,
     MIN_OFFSET,
@@ -28,6 +28,7 @@ from zultra_tpu.constants import (
     static_literal_code_lengths,
     static_offset_code_lengths,
 )
+from ..huffman import HuffmanEncoder
 
 from .chain_cuda import chain_marks
 from .dp_cuda import run_dp
@@ -57,8 +58,6 @@ I64 = torch.int64
 def _static_tables():
     """RFC 1951 fixed lengths and bit-reversed codewords, from the host
     Huffman encoder."""
-    from zultra_tpu.huffman import HuffmanEncoder
-
     lit = HuffmanEncoder(NLITERALSYMS, 15, 0)
     lit.code_length[:NLITERALSYMS] = [int(x) for x in static_literal_code_lengths()]
     lit.build_static_codewords()

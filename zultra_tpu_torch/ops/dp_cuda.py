@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zultra_tpu.constants import (
+from ..constants import (
     LEAVE_ALONE_MATCH_SIZE,
     MATCHLEN_EXTRA_BITS,
     MATCHLEN_SYMBOL,

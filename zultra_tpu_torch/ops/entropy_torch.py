@@ -3,14 +3,15 @@ length limiting, canonical codewords, the code-length table's RLE
 statistics, the Zopfli histogram rewrite, the dynamic/static block cost
 estimators and the CL-mask search.
 
-Port of zultra_tpu.ops.entropy_jax in its scan form (the configuration
-the JAX package selects with ZULTRA_MK_IMPL=scan): the MK merge and
-parent-chain phases and the Kraft lengthen/shorten sweeps are Python
-loops over the (at most 288-entry) symbol axis with every histogram of
-the batch as a vector lane. Reference semantics: zultra
-src/huffman/huffencoder.c:157-346 and :446-735, src/blockdeflate.c
-:538-618. Every tie-break (sort by (weight, symbol), strict phase-1
-comparisons, the <=1-used-symbol quirk) is reproduced.
+Port of zultra_tpu.ops.entropy_jax in the configuration the JAX package
+runs on a TPU (``_mk_impl() == "pallas"``): the sequential MK merge and
+parent-chain phases and the Kraft lengthen/shorten sweeps go through the
+kernels of ``mk_cuda`` (plain loops on CPU tensors), every histogram of
+the batch a lane; the sorts, MK phase 3's closed form and the scatters
+back to symbol order are tensor ops around them. Reference semantics:
+zultra src/huffman/huffencoder.c:157-346 and :446-735,
+src/blockdeflate.c:538-618. Every tie-break (sort by (weight, symbol),
+strict phase-1 comparisons, the <=1-used-symbol quirk) is reproduced.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zultra_tpu.constants import (
+from ..constants import (
     CODELEN_SYM_ORDER,
     NCODELENSYMS,
     NLITERALSYMS,
@@ -28,7 +29,7 @@ from zultra_tpu.constants import (
     static_literal_code_lengths,
 )
 
-from .symbol_map import floor_log2
+from . import mk_cuda
 
 INF32 = 2**30
 I32 = torch.int32
@@ -63,56 +64,27 @@ def _lex_order(key: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def mk_inputs(hist: torch.Tensor):
+    """What the MK kernel takes for ``hist`` (B, S): the used weights
+    sorted by (weight, symbol) with zeros after them, n_used (B,), and
+    the sort order (B, S) int64."""
+    used = hist > 0
+    n_used = used.sum(dim=1, dtype=I32)
+    key = torch.where(used, hist, INF32).to(I32)
+    queue = _lex_order(key)
+    key_sorted = torch.gather(key, 1, queue)
+    a0 = torch.where(key_sorted < INF32, key_sorted, 0).contiguous()
+    return a0, n_used, queue
+
+
 def mk_lengths(hist: torch.Tensor) -> torch.Tensor:
     """Batched minimum-redundancy code lengths, UNLIMITED. hist (B, S)
     int32 -> (B, S) int32; <=1 used symbol gives all zeros except
     lengths[0] = 1."""
     B, S = hist.shape
     dev = hist.device
-    rows = _arange(B, dev, I64)
-    used = hist > 0
-    n_used = used.sum(dim=1, dtype=I32)
-
-    key = torch.where(used, hist, INF32).to(I32)
-    queue = _lex_order(key)
-    key_sorted = torch.gather(key, 1, queue)
-    # Column S is a dump slot for the writes of lanes that take no
-    # internal node (the JAX scan drops them).
-    a_ext = torch.zeros((B, S + 1), dtype=I32, device=dev)
-    a_ext[:, :S] = torch.where(key_sorted < INF32, key_sorted, 0)
-    a = a_ext[:, :S]
-
-    # Phase 1: two-queue merge over t = 0..S-2.
-    leaf = torch.zeros(B, dtype=I64, device=dev)
-    internal = torch.zeros(B, dtype=I64, device=dev)
-    n_used64 = n_used.to(I64)
-
-    def pick(t, w_acc, active):
-        nonlocal leaf, internal
-        av_leaf = a[rows, torch.clamp(leaf, 0, S - 1)]
-        av_int = a[rows, torch.clamp(internal, 0, S - 1)]
-        take_int = ((leaf >= n_used64) | ((internal < t) & (av_int < av_leaf))) & active
-        w_acc = w_acc + torch.where(take_int, av_int, av_leaf)
-        a_ext.scatter_(1, torch.where(take_int, internal, S)[:, None], t + 1)
-        internal = internal + take_int.to(I64)
-        leaf = leaf + (active & ~take_int).to(I64)
-        return w_acc
-
-    for t in range(S - 1):
-        active = t < n_used64 - 1
-        w = pick(t, torch.zeros(B, dtype=I32, device=dev), active)
-        w = pick(t, w, active)
-        a[:, t] = torch.where(active, w, a[:, t])
-
-    # Phase 2: internal depths via the parent chain (parents sit at
-    # larger indices, so a backward sweep resolves each in one step).
-    root = torch.clamp(n_used64 - 2, 0, S - 1)
-    a[rows, root] = 0
-    for t in range(S - 3, -1, -1):
-        active = t <= n_used64 - 3
-        parent = a[:, t].to(I64) - 1
-        pdepth = a[rows, torch.clamp(parent, 0, S - 1)]
-        a[:, t] = torch.where(active, pdepth + 1, a[:, t])
+    a0, n_used, queue = mk_inputs(hist)
+    a = mk_cuda.mk_phase12(a0, n_used)
 
     # Phase 3 (closed form): leaves_at[d] = 2 internal_at[d-1] -
     # internal_at[d]; leaf depths fill sorted positions deepest-first.
@@ -142,8 +114,13 @@ def limited_lengths(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """Kraft-sum length limiting of unlimited MK lengths: clamp overlong
     codes, lengthen the rarest symbols until the Kraft sum fits, then
     re-shorten the most frequent while room remains. Only lanes with a
-    code longer than ``max_len`` change; the sweeps run on those alone."""
+    code longer than ``max_len`` change. On the card every lane is
+    repaired and the over-long lanes selected (no host sync, as
+    entropy_jax.limited_lengths does on a TPU); the plain form sweeps the
+    over-long lanes alone."""
     over = lengths.max(dim=1)[0] > max_len
+    if lengths.is_cuda:
+        return torch.where(over[:, None], _kraft_repair(lengths, max_len), lengths)
     if not bool(over.any()):
         return lengths
     lanes = torch.nonzero(over)[:, 0]
@@ -152,44 +129,28 @@ def limited_lengths(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     return out
 
 
-def _kraft_repair(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
-    B, S = lengths.shape
-    dev = lengths.device
-    rows = _arange(B, dev, I64)
+def kraft_inputs(lengths: torch.Tensor, max_len: int):
+    """What the Kraft kernel takes for ``lengths`` (B, S): the used
+    lengths sorted by (length, symbol) and clamped to ``max_len``, n_used
+    and the clamped Kraft sum (B,), the sort order (B, S) int64 and the
+    used-slot mask."""
+    S = lengths.shape[1]
     full = 1 << max_len
     used = lengths > 0
-    sym = _arange(S, dev)[None, :]
+    sym = _arange(S, lengths.device)[None, :]
     key = torch.where(used, lengths * S + sym, INF32)
     order = _lex_order(key)  # unused symbols' order is irrelevant (masked)
     n_used = used.sum(dim=1, dtype=I32)
     lens = torch.clamp(torch.gather(lengths, 1, order), max=max_len).contiguous()
     in_used = sym < n_used[:, None]
-    kraft = torch.where(in_used, full >> lens, 0).sum(dim=1, dtype=I32)
+    kraft0 = torch.where(in_used, full >> lens, 0).sum(dim=1, dtype=I32)
+    return lens, n_used, kraft0, order, in_used
 
-    # Phase A: lengthen the rarest (descending sorted position).
-    for p in range(S - 1, -1, -1):
-        l = lens[:, p]
-        active = (p < n_used) & (kraft > full) & (l < max_len)
-        r = (full >> l) - (kraft - full)
-        l_new = torch.where(r <= 0, max_len,
-                            torch.maximum(l, max_len - floor_log2(torch.clamp(r, min=1))))
-        l_new = torch.where(active, torch.clamp(l_new, max=max_len), l)
-        kraft = kraft - (full >> l) + (full >> l_new)
-        lens[:, p] = l_new
 
-    # Phase B: re-shorten the most frequent (ascending sorted position).
-    for p in range(S):
-        l = lens[:, p]
-        active = p < n_used
-        u = full >> l
-        m = torch.clamp(full - kraft, min=0) // torch.clamp(u, min=1)
-        d = torch.where(active, floor_log2(m + 1), 0)
-        d = torch.minimum(d, torch.clamp(l - 1, min=0))
-        kraft = kraft + u * ((1 << d) - 1)
-        lens[:, p] = l - d
-
-    return torch.zeros((B, S), dtype=I32, device=dev).scatter_(
-        1, order, torch.where(in_used, lens, 0))
+def _kraft_repair(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    lens, n_used, kraft0, order, in_used = kraft_inputs(lengths, max_len)
+    lens = mk_cuda.kraft_limit(lens, n_used, kraft0, max_len)
+    return torch.zeros_like(lengths).scatter_(1, order, torch.where(in_used, lens, 0))
 
 
 def build_lengths(hist: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -492,21 +453,28 @@ def dynamic_cost(lit_hist: torch.Tensor, off_hist: torch.Tensor) -> torch.Tensor
 MASK_ORDER = tuple(list(range(8)) + list(range(9, 32, 2)))
 
 
+def mask_histograms(lit_len: torch.Tensor, off_len: torch.Tensor):
+    """The CL histograms of every mask in MASK_ORDER, stacked mask-major
+    into one (len(MASK_ORDER) * B, 19) batch, with the concatenated
+    lengths (B, 320) and n_lit, n_off, n_def (B,)."""
+    lens, n_lit, n_off, n_def = _concat_lengths(lit_len, off_len)
+    hists = torch.cat([rle_histogram(lens, n_def, mask) for mask in MASK_ORDER])
+    return hists, lens, n_lit, n_off, n_def
+
+
 def mask_search(lit_len: torch.Tensor, off_len: torch.Tensor):
     """Evaluate every CL-code mask in the reference order (0..7, then
-    odd 9..31); later masks win cost ties. Returns (best_mask (B,),
-    cl_len (B, 19), n_lit, n_off)."""
-    lens, n_lit, n_off, n_def = _concat_lengths(lit_len, off_len)
-    costs, cl_lens = [], []
-    for mask in MASK_ORDER:
-        cl = limited_lengths(mk_lengths(rle_histogram(lens, n_def, mask)), 7)
-        costs.append(rle_bits(lens, n_def, cl, mask))
-        cl_lens.append(cl)
-    cost_m = torch.stack(costs, dim=1)
-    cl_m = torch.stack(cl_lens, dim=1)
+    odd 9..31); later masks win cost ties. The masks' CL lengths are
+    built in one stacked batch. Returns (best_mask (B,), cl_len (B, 19),
+    n_lit, n_off)."""
+    B = lit_len.shape[0]
+    hists, lens, n_lit, n_off, n_def = mask_histograms(lit_len, off_len)
+    cl_m = limited_lengths(mk_lengths(hists), 7).view(len(MASK_ORDER), B, NCODELENSYMS)
+    cost_m = torch.stack([rle_bits(lens, n_def, cl_m[i], mask)
+                          for i, mask in enumerate(MASK_ORDER)], dim=1)
     best = cost_m.min(dim=1)[0]
     mi = _arange(len(MASK_ORDER), lit_len.device)[None, :]
     midx = torch.where(cost_m == best[:, None], mi, -1).max(dim=1)[0]
     mask_arr = torch.as_tensor(np.asarray(MASK_ORDER, np.int32), device=lit_len.device)
-    cl_sel = cl_m[_arange(lens.shape[0], lit_len.device, I64), midx.to(I64)]
+    cl_sel = cl_m[midx.to(I64), _arange(B, lit_len.device, I64)]
     return mask_arr[midx.to(I64)], cl_sel, n_lit, n_off

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zultra_tpu.constants import (
+from ..constants import (
     LCP_SHIFT,
     MAX_MATCH_SIZE,
     MAX_OFFSET,

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from zultra_tpu.constants import (
+from ..constants import (
     MAX_SPLITS,
     MIN_MATCH_SIZE,
     NEODMARKERSYM,

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from zultra_tpu.constants import (
+from ..constants import (
     EXCL_VISITED_MASK,
     LCP_MASK,
     LCP_SHIFT,
