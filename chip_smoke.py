@@ -3,18 +3,24 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from zultra_tpu_torch/csrc/ (one nvcc per source,
-sm_90a), holds each kernel against its plain PyTorch version at the
-shapes the one-shot path gives it, then compresses every case of
-zultra_tpu_torch/smoke_golden.json with the port: a seeded 4 MiB mixed
+sm_90a), holds each kernel against its plain PyTorch version: the five
+of the compression path (walk, DP, chain, MK, Kraft) at the shapes the
+one-shot path gives them, and the two that no path runs (matchlen, byte
+histogram) on the match pairs and bytes of the 4 MiB corpus, a 64 MiB
+buffer and seeded edge cases. Then compresses every case of
+zultra_tpu_torch/smoke_golden.json in one shot: a seeded 4 MiB mixed
 corpus in gzip (four 1 MiB windows in one device batch), then deflate,
-zlib at 64 KiB blocks, a preset dictionary and incompressible bytes. Each
-case must rebuild the recorded input (sha256), match the recorded output
-digest (what zultra_tpu writes on its native engine), decode with zlib,
-and launch all five kernels. Prints the card's name and power limit, one
-line per phase, a JSON line of kernel results and, last,
-{"ok": true, "device": {...}}. Exits non-zero on any failure, and before
-printing any result when no CUDA device is present. Imports nothing of
-zultra_tpu.
+zlib at 64 KiB blocks, a preset dictionary, incompressible bytes and
+2 MiB at 64 KiB blocks (33 windows, three device batches). Then streams
+the gzip and the 33-window cases through ``Stream`` in 16 KiB chunks, and
+runs the CLI (``-c``, ``-cbench``, ``-quicktest``). Each compression must
+rebuild the recorded input (sha256), match the recorded output digest
+(what zultra_tpu writes on its native engine), decode with zlib, and
+launch all five path kernels, counted from 0 just before each run. Prints
+the card's name and power limit, one line per phase, a JSON line of
+kernel results and, last, {"ok": true, "device": {...}}. Exits non-zero
+on any failure, and before printing any result when no CUDA device is
+present. Imports nothing of zultra_tpu.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import hashlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 from pathlib import Path
@@ -32,6 +39,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 GOLDEN = Path(__file__).resolve().parent / "zultra_tpu_torch" / "smoke_golden.json"
@@ -42,6 +50,11 @@ KERNELS = {
     "chain": ("zultra_tpu_torch/csrc/chain.cu", "zultra_tpu/ops/chain_pallas.py:41"),
     "mk12": ("zultra_tpu_torch/csrc/mk.cu", "zultra_tpu/ops/mk_pallas.py:62"),
     "kraft": ("zultra_tpu_torch/csrc/mk.cu", "zultra_tpu/ops/mk_pallas.py:153"),
+}
+# The kernels that no path of either package runs (tests and exports only).
+OFF_PATH_KERNELS = {
+    "matchlen": ("zultra_tpu_torch/csrc/matchlen.cu", "zultra_tpu/ops/matchlen.py:34"),
+    "hist": ("zultra_tpu_torch/csrc/histogram.cu", "zultra_tpu/ops/histogram.py:31"),
 }
 
 
@@ -57,6 +70,26 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str, reps: int):
+    """Mean device milliseconds per call spent in the CUDA kernel
+    ``{kernel}_kernel`` (torch.profiler trace of ``reps`` calls after one
+    warm-up), without the host time of the wrapper around it; None when
+    the trace holds no such kernel."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if f"::{kernel}_kernel(" in ev.key)
+    return us / 1e3 / reps if us else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def host_ms(fn) -> tuple:
@@ -87,6 +120,28 @@ def sha256(b: bytes) -> str:
     return hashlib.sha256(b).hexdigest()
 
 
+def check_output(name: str, case: dict, data: bytes, dictionary, out: bytes) -> None:
+    """Raise unless ``out`` equals the case's golden digest and zlib
+    decodes it to ``data``."""
+    if len(out) != case["out_len"] or sha256(out) != case["out_sha256"]:
+        raise SystemExit(f"{name}: port output ({len(out)} B) differs from the golden "
+                         f"digest ({case['out_len']} B)")
+    wbits = {0: -15, 1: 15, 2: 31}[case["flags"]]
+    dec = (zlib.decompressobj(wbits, zdict=dictionary) if dictionary
+           else zlib.decompressobj(wbits))
+    if dec.decompress(out) + dec.flush() != data:
+        raise SystemExit(f"{name}: zlib does not decode the port's output to the input")
+
+
+def path_counts(name: str, counts: dict) -> dict:
+    """The five path kernels' launches of one run; raise if one is 0."""
+    got = {k: counts[k] for k in KERNELS}
+    for k, c in got.items():
+        if c <= 0:
+            raise SystemExit(f"{name}: the run launched no {k} kernel")
+    return got
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.parse_args()
@@ -94,13 +149,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: nothing to smoke-test", file=sys.stderr)
         return 2
-    from zultra_tpu_torch import _build, compress_device
+    from zultra_tpu_torch import FINALIZE, Stream, _build, cli, compress_device
     from zultra_tpu_torch.corpus import case_inputs
     from zultra_tpu_torch.ops import (
         block_torch,
         chain_cuda,
         dp_cuda,
+        histogram_cuda,
         launch_counts,
+        matchlen_cuda,
         mk_cuda,
         reset_launch_counts,
         walk_cuda,
@@ -254,32 +311,109 @@ def main() -> int:
     results["mk12"] = dict(mk_rows[0], plain_device="cuda", rows=mk_rows)
     results["kraft"] = dict(kraft_rows[0], plain_device="cuda", rows=kraft_rows)
 
+    # matchlen: the pair (i, i - offset) of every position of the 4 MiB
+    # corpus whose first match row has length >= 3, then a seeded edge
+    # batch on a copy of the first 1 MiB with a 300-byte run.
+    corpus_dev = torch.from_numpy(corpus.copy()).to(dev)
+    at = (torch.tensor([lo for lo, _ in spans], device=dev)[:, None]
+          + torch.arange(mbs, device=dev)[None, :])
+    has = (lens[:, HALO:, 0] >= 3) & (at < len(corpus))
+    ml_pos = at[has].to(torch.int32).contiguous()
+    ml_prev = (at - offs[:, HALO:, 0])[has].to(torch.int32).contiguous()
+    edge = corpus[:mbs].copy()
+    run_at = 500_000
+    edge[run_at : run_at + 300] = 7
+    n_e = len(edge)
+    erng = np.random.default_rng(3)
+    same = erng.integers(0, n_e, 4000)
+    tail = erng.integers(n_e - 258, n_e, 4000)
+    e_pos = np.concatenate([same, tail, n_e + erng.integers(0, 50, 100), [n_e - 1, n_e],
+                            run_at + 1 + np.arange(299), erng.integers(0, n_e, 4000)])
+    e_prev = np.concatenate([same, tail - erng.integers(1, 2000, 4000), erng.integers(0, n_e, 100),
+                             [n_e - 2, 0], run_at + np.arange(299), erng.integers(0, n_e, 4000)])
+    edge_args = (torch.from_numpy(edge).to(dev), torch.from_numpy(e_pos.astype(np.int32)).to(dev),
+                 torch.from_numpy(e_prev.astype(np.int32)).to(dev))
+    ml_rows = []
+    for label, args in (("corpus match pairs", (corpus_dev, ml_pos, ml_prev)),
+                        ("edge batch", edge_args)):
+        got = matchlen_cuda.match_lengths(*args)
+        want, plain = host_ms(lambda: matchlen_cuda.match_lengths_plain(*args).cpu())
+        ml_rows.append(dict(batch=label, pairs=int(args[1].numel()), max_abs_err=compare(
+            "matchlen", got, want), ms=cuda_ms(lambda: matchlen_cuda.match_lengths(*args), 10),
+            device_ms=device_ms(lambda: matchlen_cuda.match_lengths(*args), "matchlen", 10),
+            plain_ms=plain, bound_ms=bound_ms(*args, got),
+            n_258=int((got == 258).sum())))
+        r = ml_rows[-1]
+        print(f"matchlen [{label}]: equal on {args[1].numel()} pairs over {args[0].numel()} B; "
+              f"kernel {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), plain {plain:.1f} ms "
+              f"(cuda), bound {r['bound_ms']:.4g} ms; {r['n_258']} pairs at 258")
+    if ml_rows[1]["n_258"] < 1:
+        raise SystemExit("matchlen: the edge batch has no pair at the 258 cap")
+    results["matchlen"] = dict(ml_rows[0], plain_device="cuda", rows=ml_rows)
+
+    # Byte histogram: the 4 MiB corpus (n_symbols 256 and 200, and an
+    # unaligned view), and a seeded 64 MiB buffer, past the TPU kernel's
+    # 2^24-byte chunk. Each against its plain form and torch.bincount.
+    big = torch.from_numpy(np.random.default_rng(4).integers(0, 256, 64 << 20, np.uint8)).to(dev)
+    hist_rows = []
+    for label, x, n_sym in (("4 MiB corpus", corpus_dev, 256), ("4 MiB corpus", corpus_dev, 200),
+                            ("corpus[1:] (unaligned)", corpus_dev[1:], 256),
+                            ("64 MiB seeded", big, 256)):
+        got = histogram_cuda.byte_histogram(x, n_sym)
+        want = histogram_cuda.byte_histogram_plain(x, n_sym)
+        lib = torch.bincount(x, minlength=256)[:n_sym]
+        err = compare("hist", got, want)
+        compare("hist vs torch.bincount", got, lib)
+        hist_rows.append(dict(
+            batch=label, n=int(x.numel()), n_symbols=n_sym, max_abs_err=err,
+            ms=cuda_ms(lambda: histogram_cuda.byte_histogram(x, n_sym), 20),
+            device_ms=device_ms(lambda: histogram_cuda.byte_histogram(x, n_sym), "hist", 20),
+            plain_ms=cuda_ms(lambda: histogram_cuda.byte_histogram_plain(x, n_sym), 5),
+            library_ms=cuda_ms(lambda: torch.bincount(x, minlength=256), 20),
+            bound_ms=bound_ms(x, got)))
+        r = hist_rows[-1]
+        print(f"hist [{label}, n_symbols {n_sym}]: equal to its plain form and to "
+              f"torch.bincount on {x.numel()} B; kernel {r['ms']:.4f} ms (device "
+              f"{fmt_ms(r['device_ms'])}), plain "
+              f"{r['plain_ms']:.4f} ms, bincount {r['library_ms']:.4f} ms (cuda), bound "
+              f"{r['bound_ms']:.4g} ms")
+    del big
+    results["hist"] = dict(hist_rows[0], plain_device="cuda", rows=hist_rows)
+
     # -- the one-shot path end to end, every golden case ----------------
-    compress_device(data, 2, device=dev)  # warm-up: allocator, library, caches
-    counts = {}
-    for case in golden:
-        name = case["name"]
-        d, dictionary = inputs[name]
+    def timed_run(label, case, d, dictionary, fn):
+        """Run ``fn`` with the counts set to 0; check its output and the
+        five path kernels' launches. -> (output, seconds, launches)"""
         reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = compress_device(d, case["flags"], case["block_size"], dictionary, device=dev)
+        out = fn()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        got_counts = launch_counts()
-        if len(out) != case["out_len"] or sha256(out) != case["out_sha256"]:
-            raise SystemExit(f"{name}: port output ({len(out)} B) differs from the golden "
-                             f"digest ({case['out_len']} B)")
-        wbits = {0: -15, 1: 15, 2: 31}[case["flags"]]
-        dec = (zlib.decompressobj(wbits, zdict=dictionary) if dictionary
-               else zlib.decompressobj(wbits))
-        if dec.decompress(out) + dec.flush() != d:
-            raise SystemExit(f"{name}: zlib does not decode the port's output to the input")
-        for k, c in got_counts.items():
-            if c <= 0:
-                raise SystemExit(f"{name}: the one-shot run launched no {k} kernel")
+        got_counts = path_counts(label, launch_counts())
+        check_output(label, case, d, dictionary, out)
+        return out, secs, got_counts
+
+    def one_shot(case, d, dictionary):
+        return compress_device(d, case["flags"], case["block_size"], dictionary, device=dev)
+
+    def streamed(case, d):
+        stream = Stream(case["flags"], case["block_size"], device=dev)
+        pieces = [stream.compress(d[i : i + cli.CHUNK_SIZE])
+                  for i in range(0, len(d), cli.CHUNK_SIZE)]
+        pieces.append(stream.compress(b"", FINALIZE))
+        return b"".join(pieces)
+
+    compress_device(data, 2, device=dev)  # warm-up: allocator, library, caches
+    first = {}  # name -> (seconds, launches) of each case's one-shot run
+    for case in golden:
+        name = case["name"]
+        d, dictionary = inputs[name]
+        out, secs, got_counts = timed_run(name, case, d, dictionary,
+                                          lambda: one_shot(case, d, dictionary))
+        first[name] = (secs, got_counts)
         if name == "gzip":
-            counts = got_counts
+            counts = launch_counts()
             print(f"one-shot gzip {len(d)} B -> {len(out)} B, equal to the golden digest, "
                   f"decodes; port {len(d) / 1e6 / secs:.3f} MB/s ({secs:.2f} s) on {smi}; "
                   f"launches {got_counts}")
@@ -287,15 +421,59 @@ def main() -> int:
             print(f"{name}: {len(d)} B -> {len(out)} B, equal to the golden digest, decodes "
                   f"({secs:.2f} s); launches {got_counts}")
 
+    # -- the streaming push API: Stream fed in the CLI's 16 KiB chunks ----
+    # In turns with the one-shot path: one-shot (above), stream, stream,
+    # one-shot, so that a drift of the card or host over the run falls
+    # on both sides.
+    by_name = {case["name"]: case for case in golden}
+    for name in ("gzip", "stream"):
+        case = by_name[name]
+        d, _ = inputs[name]
+        runs = [timed_run(f"stream {name}", case, d, None, lambda: streamed(case, d))
+                for _ in range(2)]
+        again = timed_run(name, case, d, None, lambda: one_shot(case, d, None))
+        s_secs = [r[1] for r in runs]
+        o_secs = [first[name][0], again[1]]
+        mb = len(d) / 1e6
+        print(f"stream {name}: {len(d)} B in {cli.CHUNK_SIZE} B chunks, equal to the golden "
+              f"digest, decodes; stream {2 * mb / sum(s_secs):.3f} MB/s (runs "
+              f"{s_secs[0]:.2f}, {s_secs[1]:.2f} s) vs one-shot {2 * mb / sum(o_secs):.3f} MB/s "
+              f"(runs {o_secs[0]:.2f}, {o_secs[1]:.2f} s) on {smi}; launches stream "
+              f"{runs[0][2]} one-shot {first[name][1]}")
+
+    # -- the CLI: -c on the deflate case's input, -cbench, -quicktest ------
+    case = by_name["deflate"]
+    d, _ = inputs["deflate"]
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = Path(tmp) / "in.bin", Path(tmp) / "out.deflate"
+        src.write_bytes(d)
+        for mode, argv in (("-c", ["-deflate", "-c", str(src), str(dst)]),
+                           ("-cbench", ["-deflate", "-cbench", str(src)]),
+                           ("-quicktest", ["-quicktest"])):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(argv, device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if rc != 0:
+                raise SystemExit(f"cli {mode}: exit code {rc}")
+            got_counts = path_counts(f"cli {mode}", launch_counts())
+            if mode == "-c":
+                check_output("cli -c", case, d, None, dst.read_bytes())
+            print(f"cli {mode}: exit 0 in {secs:.2f} s"
+                  f"{', output equal to the deflate digest' if mode == '-c' else ''}; "
+                  f"launches {got_counts}")
+
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces) in {**KERNELS, **OFF_PATH_KERNELS}.items():
         r = results[name]
+        extra = {} if name in KERNELS else {"path": "no path runs it"}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": counts[name], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": "bytes", "library_ms": None,
+                        "bound_by": "bytes", "library_ms": r.get("library_ms"), **extra,
                         **{k: v for k, v in r.items() if k not in (
-                            "max_abs_err", "ms", "plain_ms", "bound_ms")}})
+                            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -17,6 +17,8 @@ from zultra_tpu_torch.ops import block_torch
 from zultra_tpu_torch.ops.chain_cuda import chain_marks_plain
 from zultra_tpu_torch.ops.matchfinder_torch import HALO, match_tables_device_stacked
 
+torch.set_num_threads(1)  # one thread per pytest worker (test_torch_pipeline.py)
+
 
 def test_plan_fields_equal_jax():
     mbs = 32768

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version on the same inputs (exact equality — all integer), and
-the one-shot path against zultra_tpu's native engine (exact bytes).
+the one-shot path and the streaming push API against zultra_tpu's native
+engine (exact bytes).
 Skips without CUDA; run on the card with
 ``python -m pytest tests/test_torch_cuda.py``."""
 
@@ -12,9 +13,17 @@ import torch
 
 import zultra_tpu as zt
 from zultra_tpu import engine
-from zultra_tpu_torch import compress
+from zultra_tpu_torch import FINALIZE, Stream, compress
 from zultra_tpu_torch.corpus import lz_data, mixed_corpus
-from zultra_tpu_torch.ops import block_torch, chain_cuda, dp_cuda, mk_cuda, walk_cuda
+from zultra_tpu_torch.ops import (
+    block_torch,
+    chain_cuda,
+    dp_cuda,
+    histogram_cuda,
+    matchlen_cuda,
+    mk_cuda,
+    walk_cuda,
+)
 from zultra_tpu_torch.ops.entropy_torch import build_lengths, kraft_inputs, mk_inputs, mk_lengths
 from zultra_tpu_torch.ops.matchfinder_torch import (
     HALO,
@@ -119,5 +128,55 @@ def test_many_windows_and_largest_block_equal_native(cuda):
         assert compress(data, 1, 32768, device=cuda) == zt.compress(data, 1, 32768)
         big = _corpus(2_200_000).tobytes()
         assert compress(big, 0, 2 << 20, device=cuda) == zt.compress(big, 0, 2 << 20)
+    finally:
+        engine._active_engine = None
+
+
+def test_matchlen_kernel_equals_plain(cuda):
+    """Random pairs over binary data (long matches), pos == prev, pairs
+    near and past the end, and a 300-byte run; P is no multiple of 8."""
+    rng = np.random.default_rng(5)
+    data = rng.integers(0, 2, 100_003, dtype=np.uint8)
+    data[5000:5300] = 9
+    n = len(data)
+    pos = np.concatenate([rng.integers(0, n, 20001), np.arange(5001, 5300), [n - 1, n, n + 7],
+                          rng.integers(n - 258, n, 500)])
+    prev = np.concatenate([rng.integers(0, n, 20001), np.arange(5000, 5299), [n - 1, 0, 3],
+                           rng.integers(n - 600, n, 500)])
+    args = [torch.from_numpy(a).to(cuda) for a in
+            (data, pos.astype(np.int32), prev.astype(np.int32))]
+    got = matchlen_cuda.match_lengths(*args)
+    torch.cuda.synchronize()
+    want = matchlen_cuda.match_lengths_plain(*[a.cpu() for a in args])
+    assert torch.equal(got.cpu(), want)
+    assert int(want.max()) == 258
+
+
+@pytest.mark.parametrize("n,offset,n_symbols", [(1, 0, 256), (15, 1, 256), (4097, 3, 200),
+                                                (1_000_003, 5, 300), (40 << 20, 0, 256)])
+def test_hist_kernel_equals_plain_and_bincount(cuda, n, offset, n_symbols):
+    """Unaligned views (the kernel's byte-wise head and tail), n_symbols
+    below and above 256, and 40 MiB (past the TPU kernel's 2^24 chunk)."""
+    rng = np.random.default_rng(n)
+    buf = torch.from_numpy(rng.integers(0, 256, n + offset, dtype=np.uint8)).to(cuda)
+    x = buf[offset:]
+    got = histogram_cuda.byte_histogram(x, n_symbols)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), histogram_cuda.byte_histogram_plain(x.cpu(), n_symbols))
+    ref = torch.bincount(x, minlength=256)[:n_symbols]
+    assert torch.equal(got[: ref.numel()], ref)
+    assert int(got.sum()) == int((x.to(torch.int64) < n_symbols).sum())
+
+
+def test_stream_equals_native(cuda):
+    """Twenty 32 KiB windows streamed in 16 KiB chunks: two device
+    batches (16 + 4)."""
+    engine.set_engine("native")
+    try:
+        data = _corpus(20 * 32768 - 5000).tobytes()
+        stream = Stream(1, 32768, device=cuda)
+        out = b"".join(stream.compress(data[i : i + 16384]) for i in range(0, len(data), 16384))
+        out += stream.compress(b"", FINALIZE)
+        assert out == zt.compress(data, 1, 32768)
     finally:
         engine._active_engine = None

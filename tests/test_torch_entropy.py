@@ -13,6 +13,8 @@ import jax.numpy as jnp
 from zultra_tpu.ops import entropy_jax as ej
 from zultra_tpu_torch.ops import entropy_torch as et
 
+torch.set_num_threads(1)  # one thread per pytest worker (test_torch_pipeline.py)
+
 
 def _hists(seed, B, S, skew):
     """Histograms with a mix of empty, single-symbol, sparse and heavy

@@ -32,6 +32,8 @@ CASES = [
     ("zlib", MIXED, [MIB, 2 * MIB], 1, 65536, None),
     ("dictionary", MIXED, [2 * MIB, 2 * MIB + 300000], 1, 0, [0, 3000]),
     ("stored", ["random_bytes", 65536, 0], [0, 65536], 2, 0, None),
+    # 33 windows of 64 KiB (the last 12345 bytes): three device batches
+    ("stream", MIXED, [0, 2109497], 2, 65536, None),
 ]
 
 

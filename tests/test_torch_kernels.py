@@ -21,6 +21,8 @@ from zultra_tpu_torch.corpus import lz_data
 from zultra_tpu_torch.ops import chain_cuda, dp_cuda, walk_cuda
 from zultra_tpu_torch.ops.matchfinder_torch import salcp_batch
 
+torch.set_num_threads(1)  # one thread per pytest worker (test_torch_pipeline.py)
+
 
 def _segment(data, n):
     buf = 256 + np.arange(n, dtype=np.int32)

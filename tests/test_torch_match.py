@@ -15,6 +15,8 @@ from zultra_tpu_torch.corpus import lz_data, mixed_corpus
 from zultra_tpu_torch.ops import matchfinder_torch as mt
 from zultra_tpu_torch.ops.suffix_torch import doubling_rounds
 
+torch.set_num_threads(1)  # one thread per pytest worker (test_torch_pipeline.py)
+
 
 @pytest.mark.parametrize("base", [0, 3000])
 def test_stacked_tables_two_windows(base):

@@ -18,6 +18,8 @@ from zultra_tpu.ops.mk_pallas import kraft_limit_pallas, mk_phase12_pallas
 from zultra_tpu_torch.ops import entropy_torch as et
 from zultra_tpu_torch.ops import mk_cuda
 
+torch.set_num_threads(1)  # one thread per pytest worker (test_torch_pipeline.py)
+
 
 def _hists(seed, B, S):
     """Lanes cycle through: empty, one symbol, two symbols, dense,

@@ -8,6 +8,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 import zultra_tpu as zt
 from zultra_tpu import engine
@@ -15,6 +16,8 @@ from zultra_tpu.stream import FINALIZE, Stream
 from zultra_tpu_torch import DeviceWindowEngine, compress
 from zultra_tpu_torch.stream import StreamError
 from zultra_tpu_torch.corpus import lz_data, mixed_corpus
+
+torch.set_num_threads(1)  # one thread per pytest worker (test_torch_pipeline.py)
 
 
 @pytest.fixture()

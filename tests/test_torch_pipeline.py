@@ -6,19 +6,28 @@ no source file of it (nor chip_smoke.py) imports zultra_tpu, and its
 copy of the format constants equals zultra_tpu's."""
 
 import ast
+import importlib
+import inspect
 import subprocess
 import sys
+import textwrap
 import zlib
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import zultra_tpu.constants as jax_constants
 import zultra_tpu_torch.constants as port_constants
 from zultra_tpu.device_pipeline import compress_device as compress_device_jax
 from zultra_tpu_torch import compress_device
 from zultra_tpu_torch.corpus import mixed_corpus
+
+# One intra-op thread in each pytest worker: the tier-1 run puts six workers
+# on the machine's cores, and torch's default of a thread per core in each
+# of them oversubscribes the cores several times over.
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -73,6 +82,9 @@ def test_port_sources_import_no_zultra_tpu():
             if root in ("zultra_tpu", "jax", "jaxlib"):
                 bad.append(f"{path.relative_to(REPO)}: {name}")
     assert len(files) > 10
+    names = {p.relative_to(REPO).as_posix() for p in files}
+    assert {"zultra_tpu_torch/stream.py", "zultra_tpu_torch/compat.py",
+            "zultra_tpu_torch/cli.py"} <= names
     assert not bad, bad
 
 
@@ -113,3 +125,90 @@ def test_host_half_is_a_copy(name):
         return ast.dump(f)
 
     assert body(getattr(port_dp, name)) == body(getattr(jax_dp, name))
+
+
+def _fn_ast(fn, strip_device: bool = False) -> str:
+    """The function's AST without its docstring and its name; with
+    ``strip_device``, also without a ``device`` parameter and without
+    every ``device=`` keyword it passes on."""
+    f = ast.parse(textwrap.dedent(inspect.getsource(fn))).body[0]
+    if isinstance(f.body[0], ast.Expr) and isinstance(f.body[0].value, ast.Constant):
+        f.body = f.body[1:]
+    f.name = "_"
+    if strip_device:
+        a = f.args
+        if a.args and a.args[-1].arg == "device":
+            a.args.pop()
+            a.defaults.pop()
+        if a.kwonlyargs and a.kwonlyargs[-1].arg == "device":
+            a.kwonlyargs.pop()
+            a.kw_defaults.pop()
+        for node in ast.walk(f):
+            if isinstance(node, ast.Call):
+                node.keywords = [k for k in node.keywords if k.arg != "device"]
+    return ast.dump(f)
+
+
+def _resolve(path: str):
+    module, _, attr = path.partition(":")
+    obj = importlib.import_module(module)
+    for part in attr.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+# (port function, its original in zultra_tpu, differs only by ``device``)
+COPIES = [
+    ("stream:Stream._slide_history", "stream:Stream._slide_history", False),
+    ("stream:Stream._drain_pending", "stream:Stream._drain_pending", False),
+    ("stream:Stream.compress", "stream:Stream.compress", False),
+    ("stream:Stream.set_dictionary", "stream:Stream.set_dictionary", False),
+    ("stream:memory_bound", "stream:memory_bound", False),
+    ("stream:clamp_block_size", "stream:clamp_block_size", False),
+    ("compat:ZultraStream.__init__", "compat:ZultraStream.__init__", True),
+    ("compat:ZultraStream.compress", "compat:ZultraStream.compress", False),
+    ("compat:memory_compress", "compat:memory_compress", True),
+    ("cli:_load_dictionary", "cli:_load_dictionary", False),
+    ("cli:_decompress", "cli:_decompress", False),
+    ("cli:generate_compressible_data", "cli:generate_compressible_data", False),
+    ("cli:compress_guarded", "cli:compress_guarded", True),
+    ("cli:do_benchmark", "cli:do_benchmark", True),
+    ("device_pipeline:_QueuedWindow.done", "device_pipeline:_QueuedWindow.done", False),
+    ("device_pipeline:_QueuedWindow.result", "device_pipeline:_QueuedWindow.result", False),
+    ("device_pipeline:DeviceWindowEngine.queue_window",
+     "device_pipeline:DeviceWindowEngine._queue_window", False),
+]
+
+# Ported functions that had to change, and why.
+CHANGED = {
+    "stream:Stream.__init__": "the engine is the port's DeviceWindowEngine(device); "
+                              "no engine registry, no thread pool",
+    "stream:Stream._compress_window": "only the queued branch: the port has one engine",
+    "stream:compress": "calls compress_device(device=...); no engine registry",
+    "cli:do_compress": "only the one-shot branch, which zultra_tpu takes for every "
+                       "engine with compress_corpus",
+    "cli:main": "the program's name in the usage messages",
+    "cli:do_self_test": "the tiny-input probes catch only the empty input's StreamError "
+                        "and must round-trip, where zultra_tpu swallows every error",
+    "device_pipeline:DeviceWindowEngine._flush_queue": "plans on the engine's device "
+                                                       "through the port's begin_windows_batched",
+}
+
+
+@pytest.mark.parametrize("port,orig,strip_device", COPIES, ids=[c[0] for c in COPIES])
+def test_streaming_code_is_a_copy(port, orig, strip_device):
+    """The port's stream, compat and CLI code is zultra_tpu's, line for
+    line (docstrings aside; where marked, up to the ``device`` parameter
+    that it passes on)."""
+    got = _fn_ast(_resolve(f"zultra_tpu_torch.{port}"), strip_device)
+    want = _fn_ast(_resolve(f"zultra_tpu.{orig}"))
+    assert got == want
+
+
+@pytest.mark.parametrize("name", sorted(CHANGED))
+def test_changed_functions_do_differ(name):
+    """Each function listed as changed does differ from its original even
+    up to ``device`` (else it belongs in COPIES)."""
+    got = _fn_ast(_resolve(f"zultra_tpu_torch.{name}"), True)
+    want = _fn_ast(_resolve(f"zultra_tpu.{name}"))
+    assert got != want, CHANGED[name]

@@ -16,6 +16,8 @@ from zultra_tpu_torch import interop
 from zultra_tpu_torch.corpus import lz_data, mixed_corpus
 from zultra_tpu_torch.ops import split_torch as st
 
+torch.set_num_threads(1)  # one thread per pytest worker (test_torch_pipeline.py)
+
 
 def test_split_points_from_jax_match_tables():
     mbs = 65536

@@ -30,6 +30,7 @@ build_seconds = 0.0  # wall time of the build this process ran (0 if cached)
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # C signature of every kernel entry point; each returns cudaGetLastError().
 _SIGNATURES = {
     "zt_walk": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
@@ -37,6 +38,8 @@ _SIGNATURES = {
     "zt_chain": [_VP, _VP, _VP, _VP, _I, _I, _VP],
     "zt_mk12": [_VP, _VP, _VP, _I, _I, _VP],
     "zt_kraft": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    "zt_matchlen": [_VP, _LL, _VP, _VP, _VP, _LL, _VP],
+    "zt_hist": [_VP, _LL, _VP, _I, _VP],
 }
 
 

@@ -5,7 +5,8 @@ token words.
 
 Port of zultra_tpu/device_pipeline.py for one device (no mesh). The
 device half (``_begin_windows_batched``, ``compress_device``,
-``DeviceWindowEngine``) is written in PyTorch. The host half
+``DeviceWindowEngine`` with its queued stream batch) is written in
+PyTorch. The host half
 (``put_packed_bits``, ``_encoder_from_lengths``,
 ``write_block_from_plan``, ``_WindowPlan`` and
 ``emit_window_from_plan``, device_pipeline.py:39-105 and :176-227) is a
@@ -269,35 +270,99 @@ def compress_device(data: bytes, flags: int = 0, max_block_size: int = 0,
     return bytes(out)
 
 
+class _QueuedWindow:
+    """Future-like handle for a window awaiting the batched begin-phase.
+    ``result()`` forces the engine to plan every queued window in ONE
+    device batch (the stream's pipeline-depth lookahead becomes the
+    device batch). Copy of zultra_tpu/device_pipeline.py:412-431."""
+
+    __slots__ = ("engine", "plan")
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.plan: _WindowPlan | None = None
+
+    def done(self) -> bool:
+        return self.plan is not None
+
+    def result(self) -> _WindowPlan:
+        if self.plan is None:
+            self.engine._flush_queue()
+        assert self.plan is not None
+        return self.plan
+
+
 class DeviceWindowEngine:
-    """Engine for zultra_tpu's ``Stream`` (the port imports nothing of
-    it; the engine contract is duck-typed): one-shot compression goes
-    through ``compress_device``; the per-window contract plans each
-    window alone through ``begin_windows_batched``. Attach it with
-    ``stream.engine = DeviceWindowEngine(device)``."""
+    """The port's engine: match finding, splitting and block planning on
+    ``device``; the host writes the framing, the tables and the ordered
+    bit splice.
+
+    One-shot compression goes through ``compress_device``. The streaming
+    push API (the port's ``Stream``, which creates this engine) queues
+    windows with ``queue_window`` and plans the whole lookahead, up to
+    ``pipeline_depth`` windows, in one ``begin_windows_batched`` call when
+    the stream first needs a plan; so a stream runs the same device
+    batches as the one-shot path. It always queues, on the CPU as on the
+    card (zultra_tpu queues only on a TPU, to spare XLA compiles the port
+    does not have). ``emit_window`` writes a planned window; with
+    ``queue_window`` it is the engine contract that zultra_tpu's ``Stream``
+    also accepts. A caller that wants one window planned alone calls
+    ``queue_window(...).result()``. (zultra_tpu/device_pipeline.py:434-534)"""
 
     name = "torchdev"
+    pipeline_depth = WINDOWS_PER_BATCH  # windows per device batch through the stream
 
     def __init__(self, device="cuda"):
         self.device = torch.device(device)
+        self._queue: list[tuple[_QueuedWindow, np.ndarray, int, int]] = []
+        self._mbs_seen = 0  # largest window input so far: the lane width of later batches
 
     def compress_corpus(self, data, flags=0, max_block_size=0, dictionary=None):
         return compress_device(data, flags, max_block_size, dictionary, device=self.device)
 
-    def begin_window(self, window: np.ndarray, prev: int, in_size: int,
-                     n_threads: int = 0) -> _WindowPlan:
-        window = np.asarray(window, dtype=np.uint8)
-        n = prev + in_size
-        if prev > HALO:
-            raise ValueError("a window carries at most 32 KB of history")
-        # One span whose history is exactly the window's own prefix: the
-        # corpus is the window itself.
-        [handle] = begin_windows_batched(window[:n], [(prev, n)], in_size, self.device)
-        return handle
+    # -- streaming batched begin-phase --------------------------------------
+
+    def queue_window(self, window: np.ndarray, prev: int, in_size: int,
+                     n_threads: int = 0) -> _QueuedWindow:
+        """Record one stream window for the next batched device begin.
+        Called in stream order on the stream's thread; O(window) copy."""
+        qw = _QueuedWindow(self)
+        self._queue.append((qw, np.asarray(window, np.uint8).copy(), prev, in_size))
+        return qw
+
+    def _flush_queue(self) -> None:
+        """Plan every queued window in one device batch. Consecutive
+        stream windows rebuild a contiguous corpus: the first window gives
+        its full (history + input) bytes, each later one only its input;
+        its <= 32 KB history prefix IS the previous window's tail
+        (checked). Copy of zultra_tpu/device_pipeline.py:489-521."""
+        entries = self._queue
+        self._queue = []
+        if not entries:
+            return
+        _, win0, prev0, in0 = entries[0]
+        corpus = bytearray(win0[: prev0 + in0].tobytes())
+        spans = [(prev0, prev0 + in0)]
+        self._mbs_seen = max(self._mbs_seen, in0)
+
+        for _, win, prev, in_size in entries[1:]:
+            lo = len(corpus)
+            if prev != min(HISTORY_SIZE, lo):
+                raise ValueError("queued windows are not consecutive")
+            if not np.array_equal(
+                win[:prev], np.frombuffer(corpus, np.uint8, prev, lo - prev)
+            ):
+                raise ValueError("queued window history diverges from stream")
+            corpus += win[prev : prev + in_size].tobytes()
+            spans.append((lo, lo + in_size))
+            self._mbs_seen = max(self._mbs_seen, in_size)
+
+        handles = begin_windows_batched(
+            np.frombuffer(bytes(corpus), np.uint8), spans, self._mbs_seen, self.device
+        )
+        for (qw, _, _, _), handle in zip(entries, handles):
+            qw.plan = handle
 
     def emit_window(self, handle: _WindowPlan, window_is_last: bool, out: bytearray,
                     bits_data: int, bits_count: int):
         return emit_window_from_plan(handle, window_is_last, out, bits_data, bits_count)
-
-    def free_window(self, handle: _WindowPlan) -> None:
-        pass

@@ -1,6 +1,6 @@
 """Device stages of the port: symbol maps, suffix arrays, match tables,
 the Huffman bundle, the splitter, the block planner, and the wrappers of
-the walk, DP, chain, MK and Kraft kernels. Nothing here imports at
+the walk, DP, chain, MK, Kraft, matchlen and byte-histogram kernels. Nothing here imports at
 package load; each module is imported where it is used."""
 
 # kernel name -> (wrapper module, its launch counter)
@@ -10,6 +10,8 @@ _COUNTERS = {
     "chain": ("chain_cuda", "launches"),
     "mk12": ("mk_cuda", "mk12_launches"),
     "kraft": ("mk_cuda", "kraft_launches"),
+    "matchlen": ("matchlen_cuda", "launches"),
+    "hist": ("histogram_cuda", "launches"),
 }
 
 
