@@ -5,7 +5,9 @@
 Builds the CUDA kernels from zultra_tpu_torch/csrc/ (one nvcc per source,
 sm_90a), holds each kernel against its plain PyTorch version: the five
 of the compression path (walk, DP, chain, MK, Kraft) at the shapes the
-one-shot path gives them, and the two that no path runs (matchlen, byte
+one-shot path gives them (the DP also on every planner bucket of the
+4 MiB gzip case, a 64 KiB zero run and a 2^21 lane, with the share of
+segments its fix-up re-ran), and the two that no path runs (matchlen, byte
 histogram) on the match pairs and bytes of the 4 MiB corpus, a 64 MiB
 buffer and seeded edge cases. Then compresses every case of
 zultra_tpu_torch/smoke_golden.json in one shot: a seeded 4 MiB mixed
@@ -191,6 +193,9 @@ def main() -> int:
     _build.lib()
     print(f"build: {_build.library_path().name} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds:.2f} s)")
+    for line in _build.build_log.get("dp", "").splitlines():
+        if line.strip():
+            print(f"nvcc -Xptxas -v dp.cu: {line.strip()}")
 
     # -- the golden cases' inputs ------------------------------------------
     golden = json.loads(GOLDEN.read_text())["cases"]
@@ -224,6 +229,41 @@ def main() -> int:
           f"{results['walk']['main_path_ms']:.3f} ms")
 
     lens, offs = match_tables_device_stacked(corpus, spans, mbs, dev)
+
+    # DP: four inputs, each against the sequential plain form on the host
+    # and with the share of segments the kernel's fix-up re-ran. Eight
+    # 32 KiB corpus lanes (the row kept from the first kernel), the lanes
+    # of every planner bucket of the 4 MiB gzip case (its first pass), one
+    # lane that is a 64 KiB zero run (no segment anchors) and one 2^21
+    # lane of random bytes (above the clamp limit: one sequential pass).
+    def dp_row(label, args, reps):
+        got, st = dp_cuda.dp_choices(*args, status=True)
+        want, plain = host_ms(lambda: dp_cuda.dp_choices_plain(*[a.cpu() for a in args[:4]]))
+        seg = st[st != dp_cuda.ST_NONE]
+        n_seq = int((seg == dp_cuda.ST_SEQUENTIAL).sum())
+        n_rerun = int((seg == dp_cuda.ST_RERUN).sum())
+        row = dict(batch=label, shape=list(args[0].shape), lengths=args[4].tolist()[:16],
+                   max_abs_err=compare(f"dp [{label}]", got, want), plain_ms=plain,
+                   ms=cuda_ms(lambda: dp_cuda.dp_choices(*args), reps),
+                   bound_ms=bound_ms(*args, got), segments=int(seg.numel()), rerun=n_rerun,
+                   sequential=n_seq, fixed_share=n_rerun / max(1, int(seg.numel()) - n_seq))
+        print(f"dp [{label}]: equal on {tuple(args[0].shape)} lanes x positions; kernel "
+              f"{row['ms']:.4f} ms (3 launches), plain {plain:.1f} ms (cpu), bound "
+              f"{row['bound_ms']:.4g} ms; segments {row['segments']}, re-run {n_rerun} "
+              f"(share {row['fixed_share']:.4f}), sequential {n_seq}")
+        return row
+
+    def one_lane(buf):
+        n_l = len(buf)
+        l_lens, l_offs = match_tables_device_stacked(buf, [(0, n_l)], n_l, dev)
+        w_l = torch.from_numpy(buf.copy()).to(dev)[None]
+        ml_l = l_lens[:, HALO : HALO + n_l].contiguous()
+        mo_l = l_offs[:, HALO : HALO + n_l].contiguous()
+        ln = torch.full((1,), n_l, dtype=torch.int32, device=dev)
+        gl, go, _ = block_torch.token_hist(w_l, ml_l[:, :, 0], mo_l[:, :, 0], ln)
+        return (*dp_cuda.prep_lanes(build_lengths(gl, 15), build_lengths(go, 15), w_l, ml_l,
+                                    mo_l, ln), ln)
+
     n = 32768
     W = len(spans)
     lanes = [(w, HALO + j * n) for w in range(W) for j in range(2)][:8]
@@ -233,16 +273,27 @@ def main() -> int:
     mo = torch.stack([offs[w, s : s + n] for w, s in lanes]).contiguous()
     length = torch.full((len(lanes),), n, dtype=torch.int32, device=dev)
     g_lit, g_off, _ = block_torch.token_hist(win, ml[:, :, 0], mo[:, :, 0], length)
-    dp_in = dp_cuda.prep_lanes(build_lengths(g_lit, 15), build_lengths(g_off, 15), win, ml, mo,
-                               length)
-    got = dp_cuda.dp_choices(*dp_in)
-    want, plain = host_ms(lambda: dp_cuda.dp_choices_plain(*[a.cpu() for a in dp_in]))
-    results["dp"] = dict(shape=list(dp_in[0].shape), max_abs_err=compare("dp", got, want),
-                         plain_ms=plain, plain_device="cpu",
-                         ms=cuda_ms(lambda: dp_cuda.dp_choices(*dp_in), 3),
-                         bound_ms=bound_ms(*dp_in, got))
-    print(f"dp: equal on {tuple(dp_in[0].shape)} lanes x positions; kernel "
-          f"{results['dp']['ms']:.3f} ms, plain {plain:.1f} ms (cpu)")
+    dp_rows = [dp_row("8 x 32768 corpus lanes", (*dp_cuda.prep_lanes(
+        build_lengths(g_lit, 15), build_lengths(g_off, 15), win, ml, mo, length), length), 3)]
+
+    real_run_dp = block_torch.run_dp
+    buckets = {}  # n_pad -> the planner's DP arguments of its first pass
+
+    def recording_run_dp(*args):
+        buckets.setdefault(args[2].shape[1], args)
+        return real_run_dp(*args)
+
+    block_torch.run_dp = recording_run_dp
+    try:
+        compress_device(data, 2, device=dev)  # also the warm-up of the library and caches
+    finally:
+        block_torch.run_dp = real_run_dp
+    for n_pad, args in sorted(buckets.items()):
+        dp_rows.append(dp_row(f"gzip bucket {n_pad}", (*dp_cuda.prep_lanes(*args), args[5]), 3))
+    dp_rows.append(dp_row("64 KiB zero run", one_lane(np.zeros(1 << 16, np.uint8)), 3))
+    dp_rows.append(dp_row("2^21 random bytes", one_lane(
+        np.random.default_rng(6).integers(0, 256, 1 << 21, np.uint8)), 1))
+    results["dp"] = dict(dp_rows[0], plain_device="cpu", rows=dp_rows)
 
     n_pad = split_bucket(HALO + mbs)
     rl = torch.nn.functional.pad(lens[:, :, 0], (0, n_pad - lens.shape[1]))
@@ -404,7 +455,6 @@ def main() -> int:
         pieces.append(stream.compress(b"", FINALIZE))
         return b"".join(pieces)
 
-    compress_device(data, 2, device=dev)  # warm-up: allocator, library, caches
     first = {}  # name -> (seconds, launches) of each case's one-shot run
     for case in golden:
         name = case["name"]

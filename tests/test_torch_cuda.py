@@ -71,7 +71,7 @@ def test_dp_and_chain_kernels_equal_plain(cuda):
     g_lit, g_off, tok = block_torch.token_hist(win, ml[:, :, 0], mo[:, :, 0], length)
     args = dp_cuda.prep_lanes(build_lengths(g_lit, 15), build_lengths(g_off, 15), win, ml, mo,
                               length)
-    got = dp_cuda.dp_choices(*args)
+    got = dp_cuda.dp_choices(*args, length)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), dp_cuda.dp_choices_plain(*[a.cpu() for a in args]))
 
@@ -83,6 +83,37 @@ def test_dp_and_chain_kernels_equal_plain(cuda):
     assert torch.equal(marks.cpu(),
                        chain_cuda.chain_marks_plain(step.cpu(), start.cpu(), n_real.cpu()))
     assert bool(tok.any())
+
+
+@pytest.mark.parametrize("seg,warm,seq_limit", [(dp_cuda.SEG, dp_cuda.WARM, dp_cuda.SEQ_LIMIT),
+                                                (512, 512, 4000), (259, 0, dp_cuda.SEQ_LIMIT)])
+def test_dp_segments_kernel_equals_model(cuda, seg, warm, seq_limit):
+    """A lane with a 4 KiB zero run and ragged lengths (1, 511, 512, 513,
+    past the last full segment, 0): the kernel's choices equal the
+    sequential recurrence's, and its segment status equals the schedule
+    model's, so the kernel re-ran exactly the segments the model did (and
+    ran sequentially the lanes above ``seq_limit``)."""
+    n = 8192
+    d = bytearray(mixed_corpus(8 * n, seed=71)[: 8 * n])
+    d[2048 : 2048 + 4096] = bytes(4096)
+    corpus = np.frombuffer(bytes(d), np.uint8)
+    lens, offs = match_tables_device_stacked(corpus, [(0, 8 * n)], 8 * n, cuda)
+    win = torch.from_numpy(corpus.copy()).to(cuda).view(8, n)
+    ml = lens[0, HALO : HALO + 8 * n].reshape(8, n, 8).contiguous()
+    mo = offs[0, HALO : HALO + 8 * n].reshape(8, n, 8).contiguous()
+    length = torch.tensor([n, 1, 511, 512, 513, 3 * 512 + 100, 0, n - 5], dtype=torch.int32,
+                          device=cuda)
+    g_lit, g_off, _ = block_torch.token_hist(win, ml[:, :, 0], mo[:, :, 0], length)
+    args = dp_cuda.prep_lanes(build_lengths(g_lit, 15), build_lengths(g_off, 15), win, ml, mo,
+                              length)
+    got, st = dp_cuda.dp_choices(*args, length, status=True, seg=seg, warm=warm,
+                                 seq_limit=seq_limit)
+    torch.cuda.synchronize()
+    cpu = [a.cpu() for a in args]
+    assert torch.equal(got.cpu(), dp_cuda.dp_choices_plain(*cpu))
+    _, want_st = dp_cuda.dp_segments_model(*cpu, length.cpu(), seg, warm, seq_limit)
+    assert torch.equal(st.cpu(), want_st)
+    assert int((st.eq(dp_cuda.ST_RERUN) | st.eq(dp_cuda.ST_SEQUENTIAL)).sum()) > 0
 
 
 @pytest.mark.parametrize("S,B", [(19, 805), (32, 4099), (288, 70)])

@@ -27,6 +27,7 @@ NVCC_FLAGS = [
 
 _lib = None
 build_seconds = 0.0  # wall time of the build this process ran (0 if cached)
+build_log = {}  # source stem -> nvcc's output (ptxas registers, shared memory, spills)
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,7 +35,7 @@ _LL = ctypes.c_longlong
 # C signature of every kernel entry point; each returns cudaGetLastError().
 _SIGNATURES = {
     "zt_walk": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    "zt_dp": [_VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
+    "zt_dp": [_VP] * 9 + [_I] * 5 + [_VP],
     "zt_chain": [_VP, _VP, _VP, _VP, _I, _I, _VP],
     "zt_mk12": [_VP, _VP, _VP, _I, _I, _VP],
     "zt_kraft": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
@@ -64,15 +65,16 @@ def library_path() -> Path:
     return BUILD_DIR / f"libzt_kernels-{digest.hexdigest()[:12]}.so"
 
 
-def _run_all(cmds: list) -> None:
+def _run_all(cmds: list) -> list:
     """Run the commands side by side; raise with the output of the first
-    that fails."""
+    that fails, else return their outputs."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for c in cmds]
     logs = [p.communicate()[0] for p in procs]
     for cmd, p, log in zip(cmds, procs, logs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{log}")
+    return logs
 
 
 def build() -> Path:
@@ -89,8 +91,9 @@ def build() -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-                  for src, o in zip(sources, objects)])
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o), str(src)]
+                         for src, o in zip(sources, objects)])
+        build_log.update({src.stem: log for src, log in zip(sources, logs)})
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
         os.replace(tmp, out)
     finally:

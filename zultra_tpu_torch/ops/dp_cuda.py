@@ -15,6 +15,28 @@ current code lengths:
 
 The DP returns chosen_len | slot << 9 per position (slot 0 = literal);
 offsets are re-read from the match table by slot.
+
+The kernel (``csrc/dp.cu``, replacing the TPU kernel
+``zultra_tpu/ops/dp_pallas.py::_dp_kernel``) cuts each lane into
+segments of SEG positions and makes three launches a call:
+speculate every segment from a zero cost ring WARM positions above it,
+check each against the segment above, fix up the rest sequentially,
+top down. ``dp_segments_model`` is the same schedule in plain Python.
+
+Why the result is exact: cost[p] reads only cost[p+1 .. p+258] (the
+taps). If a segment's warm-up costs differ from the (exact up to a
+constant) costs of the segment above by one constant over 258
+consecutive positions, every candidate below carries that constant too,
+and the packed minima keep their argmin and tie-breaks, so the choices
+are the true ones; INF = 2^26 stays above every real candidate. A
+segment whose run starts at the lane's length starts from the true
+boundary; a segment that does not anchor is re-run from the ring of the
+segment above, and the one below it is checked again. The argument
+needs the clamp min(., CLAMPX) never to act: a literal costs at most 15
+bits (code lengths <= 15) and a length symbol at most 20, so on a lane
+of L positions every cost is at most 15 L and every clamped sum at most
+15 L + 20 <= CLAMPX for L <= SEQ_LIMIT = 1,118,479. Longer lanes (block
+sizes up to 2 MiB) run as one sequential pass from their length.
 """
 
 from __future__ import annotations
@@ -46,7 +68,17 @@ N_SHORT = LEAVE_ALONE_MATCH_SIZE - MIN_MATCH_SIZE  # 37 truncation lengths
 I32 = torch.int32
 I64 = torch.int64
 
-launches = 0  # kernel launches since the last reset
+TAPS = 258  # cost[p] reads cost[p + 1 .. p + 258]
+SEG = 1024  # positions per segment
+WARM = 512  # warm-up positions above each segment
+# Lanes longer than this run as one sequential pass: below it no cost can
+# reach CLAMPX (a literal costs at most 15 bits, a length symbol 20), so
+# the clamp never acts and a uniform shift of the costs changes no choice.
+SEQ_LIMIT = (CLAMPX - 20) // 15
+# Segment status, as the kernel leaves it.
+ST_NONE, ST_EXACT, ST_ANCHORED, ST_SPECULATED, ST_RERUN, ST_SEQUENTIAL = range(6)
+
+launches = 0  # calls of dp_choices on CUDA tensors since the last reset
 
 
 def varlen_tables(lit_lens: torch.Tensor) -> torch.Tensor:
@@ -94,40 +126,70 @@ def prep_lanes(ll, ol, window, mlens, moffs, length):
             varlen40.to(I32).contiguous())
 
 
-def dp_choices(lit, p1, p2, varlen40) -> torch.Tensor:
-    """Packed choices (B, n) int32: chosen_len | slot << 9."""
+def check_segments(seg: int, warm: int) -> None:
+    """The taps a re-run starts from, and the warm-up a segment is
+    checked over, must lie in the one segment above it."""
+    if seg < TAPS or not 0 <= warm <= seg:
+        raise ValueError(f"dp: need seg >= {TAPS} and 0 <= warm <= seg, got {seg}, {warm}")
+
+
+def dp_choices(lit, p1, p2, varlen40, length, *, status=False, seg=SEG, warm=WARM,
+               seq_limit=SEQ_LIMIT):
+    """Packed choices (B, n) int32: chosen_len | slot << 9. ``length``
+    (B,) int32 gives each lane's end; every position at or past it must
+    hold lit 0 (``prep_lanes`` makes it so) and gets choice 0. With
+    ``status=True`` also returns the (B, ceil(n / seg)) int8 segment
+    status (``ST_*``). A CPU tensor takes the plain forms: the
+    sequential recurrence, or the schedule's model when the status is
+    asked for."""
     global launches
+    check_segments(seg, warm)
     if lit.device.type == "cpu":
+        if status:
+            return dp_segments_model(lit, p1, p2, varlen40, length, seg, warm, seq_limit)
         return dp_choices_plain(lit, p1, p2, varlen40)
     _build.check_cuda("dp lit", lit, I32, 2)
     _build.check_cuda("dp p1", p1, I32, 3)
     _build.check_cuda("dp p2", p2, I32, 3)
     _build.check_cuda("dp varlen40", varlen40, I32, 2)
+    _build.check_cuda("dp length", length, I32, 1)
     B, n = lit.shape
-    if p1.shape != (B, n, NMATCHES_PER_OFFSET) or p2.shape != p1.shape or varlen40.shape != (B, 40):
+    if (p1.shape != (B, n, NMATCHES_PER_OFFSET) or p2.shape != p1.shape
+            or varlen40.shape != (B, 40) or length.shape != (B,)):
         raise ValueError("dp: inconsistent input shapes")
+    nseg = -(-n // seg)
     out = torch.empty((B, n), dtype=I32, device=lit.device)
+    cost = torch.empty((B, n), dtype=I32, device=lit.device)
+    warm_costs = torch.empty((B * nseg, max(warm, 1)), dtype=I32, device=lit.device)
+    st = torch.empty((B, nseg), dtype=torch.int8, device=lit.device)
     _build.launch("zt_dp", lit.data_ptr(), p1.data_ptr(), p2.data_ptr(), varlen40.data_ptr(),
-                  out.data_ptr(), B, n)
+                  length.data_ptr(), out.data_ptr(), cost.data_ptr(), warm_costs.data_ptr(),
+                  st.data_ptr(), B, n, seg, warm, seq_limit)
     launches += 1
-    return out
+    return (out, st) if status else out
 
 
 def dp_choices_plain(lit, p1, p2, varlen40) -> torch.Tensor:
     """The recurrence as a plain loop over each lane's positions (Python
-    ints), with the kernel's exact constants and tie-breaks."""
+    ints), with the kernel's exact constants and tie-breaks, from
+    cost 0 at the padded end n."""
     B, n = lit.shape
     out = [
-        _dp_lane(lit[b].tolist(), p1[b].tolist(), p2[b].tolist(), varlen40[b].tolist(), n)
+        _dp_span(lit[b].tolist(), p1[b].tolist(), p2[b].tolist(), varlen40[b].tolist(), 0, n,
+                 [0] * TAPS)[1]
         for b in range(B)
     ]
     return torch.tensor(out, dtype=I32, device=lit.device).reshape(B, n)
 
 
-def _dp_lane(lit, p1, p2, vl, n):
-    cost = [0] * (n + 272)  # cost[p] = 0 for p >= n: the boundary
-    out = [0] * n
-    for p in range(n - 1, -1, -1):
+def _dp_span(lit, p1, p2, vl, lo, hi, top):
+    """The recurrence from hi - 1 down to lo, given ``top``, the TAPS
+    costs of positions hi .. hi + TAPS - 1. -> (costs, choices), each a
+    list over [lo, hi)."""
+    cost = [0] * (hi - lo) + list(top)  # cost[p - lo]
+    out = [0] * (hi - lo)
+    for p in range(hi - 1, lo - 1, -1):
+        i = p - lo
         row1 = p1[p]
         row2 = p2[p]
         need = 0
@@ -137,10 +199,10 @@ def _dp_lane(lit, p1, p2, vl, n):
         pm = []
         run = 1 << 62
         for k in range(MIN_MATCH_SIZE, MIN_MATCH_SIZE + need + 1):
-            x = min(vl[k - MIN_MATCH_SIZE] + cost[p + k], CLAMPX)
+            x = min(vl[k - MIN_MATCH_SIZE] + cost[i + k], CLAMPX)
             run = min(run, x * 64 + 63 - k)
             pm.append(run)
-        key = (lit[p] + cost[p + 1]) * 16
+        key = (lit[p] + cost[i + 1]) * 16
         lsel = 0
         for m in range(NMATCHES_PER_OFFSET):
             a = row1[m]
@@ -152,20 +214,86 @@ def _dp_lane(lit, p1, p2, vl, n):
             lcs = b & 0xFFFF
             valid_l = lcs != INF16
             if valid_l:
-                cand = min(cand, lcs + (cost[p + cl] if cl >= LEAVE_ALONE_MATCH_SIZE else 0))
+                cand = min(cand, lcs + (cost[i + cl] if cl >= LEAVE_ALONE_MATCH_SIZE else 0))
             km = cand * 16 + m + 1
             if km < key:
                 key = km
                 lsel = cl if valid_l else 63 - (wg & 63)
         mcode = key & 15
-        cost[p] = key >> 4
-        out[p] = (lsel if mcode else 0) | (mcode << 9)
-    return out
+        cost[i] = key >> 4
+        out[i] = (lsel if mcode else 0) | (mcode << 9)
+    return cost[: hi - lo], out
+
+
+def _anchored(warm_costs, costs) -> bool:
+    """True when the two cost runs differ by one constant over TAPS
+    consecutive positions (the shift check)."""
+    run, prev = 0, None
+    for w, c in zip(warm_costs, costs):
+        d = w - c
+        run = run + 1 if d == prev else 1
+        prev = d
+        if run >= TAPS:
+            return True
+    return False
+
+
+def dp_segments_model(lit, p1, p2, varlen40, length, seg=SEG, warm=WARM, seq_limit=SEQ_LIMIT):
+    """The kernel's schedule in plain Python, for the tests: (choices
+    (B, n) int32, segment status (B, ceil(n / seg)) int8). Phase by
+    phase as ``csrc/dp.cu`` runs it."""
+    check_segments(seg, warm)
+    B, n = lit.shape
+    nseg = -(-n // seg)
+    out = torch.zeros((B, n), dtype=I32)
+    st = torch.zeros((B, nseg), dtype=torch.int8)
+    for b in range(B):
+        rows = (lit[b].tolist(), p1[b].tolist(), p2[b].tolist(), varlen40[b].tolist())
+        L = min(max(int(length[b]), 0), n)
+        o, s = _model_lane(rows, L, seg, warm, seq_limit)
+        out[b, :L] = torch.tensor(o, dtype=I32)
+        st[b, : len(s)] = torch.tensor(s, dtype=torch.int8)
+    return out.to(lit.device), st.to(lit.device)
+
+
+def _model_lane(rows, L, seg, warm, seq_limit):
+    k = -(-L // seg)
+    if L > seq_limit:  # costs could pass CLAMPX: one exact sequential run
+        return _dp_span(*rows, 0, L, [0] * TAPS)[1], [ST_SEQUENTIAL] * k
+    cost, out, warm_costs, st = [0] * L, [0] * L, [None] * k, [0] * k
+    bounds = [(s * seg, min(s * seg + seg, L)) for s in range(k)]
+    # 1. Speculate: every segment from a zero ring at min(b + warm, L).
+    for s, (a, b) in enumerate(bounds):
+        top = min(b + warm, L)
+        c, o = _dp_span(*rows, a, top, [0] * TAPS)
+        cost[a:b], out[a:b], warm_costs[s] = c[: b - a], o[: b - a], c[b - a :]
+        st[s] = ST_EXACT if top == L else ST_SPECULATED
+    # 2. Check each speculated segment against the one above it.
+    for s, (a, b) in enumerate(bounds):
+        if st[s] == ST_SPECULATED:
+            st[s] = ST_ANCHORED if _anchored(warm_costs[s], cost[b : b + warm]) else ST_SPECULATED
+    # 3. Fix up, top down: re-run what is not anchored from the ring above,
+    # and check the segment below each re-run against its new costs.
+    above = False
+    for s in range(k - 1, -1, -1):
+        a, b = bounds[s]
+        if above:
+            if st[s] == ST_EXACT or _anchored(warm_costs[s], cost[b : b + warm]):
+                st[s] = ST_EXACT if st[s] == ST_EXACT else ST_ANCHORED
+                above = False
+                continue
+        elif st[s] != ST_SPECULATED:
+            continue
+        top = [cost[q] if q < L else 0 for q in range(b, b + TAPS)]
+        cost[a:b], out[a:b] = _dp_span(*rows, a, b, top)
+        st[s] = ST_RERUN
+        above = True
+    return out, st
 
 
 def run_dp(lit_lens, off_lens, window, mlens, moffs, length):
     """One batched DP pass: (best_len, best_off), each (B, n) int32."""
-    v = dp_choices(*prep_lanes(lit_lens, off_lens, window, mlens, moffs, length))
+    v = dp_choices(*prep_lanes(lit_lens, off_lens, window, mlens, moffs, length), length)
     best_len = v & 511
     mcode = (v >> 9).to(I64)
     got = torch.gather(moffs, 2, torch.clamp(mcode - 1, min=0)[:, :, None])[:, :, 0]

@@ -21,6 +21,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -128,8 +129,11 @@ def main() -> int:
           f"{1 - busy / traced:.4f}")
     for s, count, key in kernels[:15]:
         print(f"  {s:.4f} s  {count:7d}x  {key[:90]}")
-    ours = [{"name": name, "s": s, "count": c, "us_per_launch": s / c * 1e6}
-            for name in launches for s, c, k in kernels if f"::{name}_kernel(" in k]
+    # A port kernel is ``{name}_kernel`` or, where one call makes several
+    # launches, ``{name}_{phase}_kernel`` (the DP's spec, check, fixup).
+    ours = [{"name": m.group(1), "s": s, "count": c, "us_per_launch": s / c * 1e6}
+            for name in launches for s, c, k in kernels
+            if (m := re.search(rf"::({name}(?:_[a-z]+)?)_kernel\(", k))]
     for k in ours:
         print(f"  port kernel {k['name']}: {k['s']:.6f} s over {k['count']} launches, "
               f"{k['us_per_launch']:.2f} us each")
