@@ -7,7 +7,9 @@ sm_90a), holds each kernel against its plain PyTorch version: the five
 of the compression path (walk, DP, chain, MK, Kraft) at the shapes the
 one-shot path gives them (the DP also on every planner bucket of the
 4 MiB gzip case, a 64 KiB zero run and a 2^21 lane, with the share of
-segments its fix-up re-ran), and the two that no path runs (matchlen, byte
+segments its fix-up re-ran; the chain on the splitter's lanes, every
+planner bucket, a 64 KiB zero run and a 2^21 lane of 3s, with the share
+of segments it re-walked), and the two that no path runs (matchlen, byte
 histogram) on the match pairs and bytes of the 4 MiB corpus, a 64 MiB
 buffer and seeded edge cases. Then compresses every case of
 zultra_tpu_torch/smoke_golden.json in one shot: a seeded 4 MiB mixed
@@ -30,6 +32,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -75,18 +78,18 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, kernel: str, reps: int):
-    """Mean device milliseconds per call spent in the CUDA kernel
-    ``{kernel}_kernel`` (torch.profiler trace of ``reps`` calls after one
-    warm-up), without the host time of the wrapper around it; None when
-    the trace holds no such kernel."""
+    """Mean device milliseconds per call spent in the CUDA kernels
+    ``{kernel}_kernel`` and ``{kernel}_{phase}_kernel`` (torch.profiler
+    trace of ``reps`` calls after one warm-up), without the host time of
+    the wrapper around them; None when the trace holds no such kernel."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if f"::{kernel}_kernel(" in ev.key)
+    name = re.compile(rf"::{kernel}(?:_[a-z]+)?_kernel\(")
+    us = sum(ev.self_device_time_total for ev in prof.key_averages() if name.search(ev.key))
     return us / 1e3 / reps if us else None
 
 
@@ -151,7 +154,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: nothing to smoke-test", file=sys.stderr)
         return 2
-    from zultra_tpu_torch import FINALIZE, Stream, _build, cli, compress_device
+    from zultra_tpu_torch import FINALIZE, Stream, _build, chain_bench, cli, compress_device
     from zultra_tpu_torch.corpus import case_inputs
     from zultra_tpu_torch.ops import (
         block_torch,
@@ -178,7 +181,6 @@ def main() -> int:
         match_tables_device_stacked,
         salcp_batch,
     )
-    from zultra_tpu_torch.ops.split_torch import split_bucket
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -193,9 +195,10 @@ def main() -> int:
     _build.lib()
     print(f"build: {_build.library_path().name} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds:.2f} s)")
-    for line in _build.build_log.get("dp", "").splitlines():
-        if line.strip():
-            print(f"nvcc -Xptxas -v dp.cu: {line.strip()}")
+    for src in ("dp", "chain"):
+        for line in _build.build_log.get(src, "").splitlines():
+            if line.strip():
+                print(f"nvcc -Xptxas -v {src}.cu: {line.strip()}")
 
     # -- the golden cases' inputs ------------------------------------------
     golden = json.loads(GOLDEN.read_text())["cases"]
@@ -295,22 +298,35 @@ def main() -> int:
         np.random.default_rng(6).integers(0, 256, 1 << 21, np.uint8)), 1))
     results["dp"] = dict(dp_rows[0], plain_device="cpu", rows=dp_rows)
 
-    n_pad = split_bucket(HALO + mbs)
-    rl = torch.nn.functional.pad(lens[:, :, 0], (0, n_pad - lens.shape[1]))
-    step = torch.where(rl >= 3, rl, 1).contiguous()
-    start = torch.full((W,), HALO, dtype=torch.int32, device=dev)
-    n_real = torch.tensor([HALO + hi - lo for lo, hi in spans], dtype=torch.int32, device=dev)
-    got = chain_cuda.chain_marks(step, start, n_real)
-    want, plain = host_ms(lambda: chain_cuda.chain_marks_plain(step.cpu(), start.cpu(),
-                                                               n_real.cpu()))
-    results["chain"] = dict(shape=list(step.shape),
-                            max_abs_err=compare("chain", got.to(torch.int32),
-                                                want.to(torch.int32)),
-                            plain_ms=plain, plain_device="cpu",
-                            ms=cuda_ms(lambda: chain_cuda.chain_marks(step, start, n_real), 3),
-                            bound_ms=bound_ms(step, start, n_real, got.to(torch.int32)))
-    print(f"chain: equal on {tuple(step.shape)} splitter lanes; kernel "
-          f"{results['chain']['ms']:.3f} ms, plain {plain:.1f} ms (cpu)")
+    # Chain: the lanes of chain_bench (the splitter's four 2^21 lanes, every
+    # planner bucket of the 4 MiB gzip case's first pass, a 2^21 lane of 3s,
+    # where two thirds of the segments cannot merge, and a 64 KiB zero
+    # run), each against pointer doubling on the host, with the segments
+    # the kernel anchored, re-walked (merging) and left unmerged. Output:
+    # one byte a position.
+    def chain_row(label, args, reps):
+        got, st = chain_cuda.chain_marks(*args, status=True)
+        want, plain = host_ms(lambda: chain_cuda.chain_marks_plain(*[a.cpu() for a in args]))
+        live = st[st != chain_cuda.ST_NONE]
+        counts = {k: int((live == getattr(chain_cuda, f"ST_{k.upper()}")).sum())
+                  for k in ("exact", "anchored", "rerun", "unmerged")}
+        walked = counts["rerun"] + counts["unmerged"]
+        row = dict(batch=label, shape=list(args[0].shape), lengths=args[2].tolist()[:16],
+                   max_abs_err=compare(f"chain [{label}]", got, want), plain_ms=plain,
+                   ms=cuda_ms(lambda: chain_cuda.chain_marks(*args), reps),
+                   device_ms=device_ms(lambda: chain_cuda.chain_marks(*args), "chain", reps),
+                   bound_ms=bound_ms(*args, got), segments=int(live.numel()), **counts,
+                   rewalk_share=walked / max(1, int(live.numel()) - counts["exact"]))
+        print(f"chain [{label}]: equal on {tuple(args[0].shape)} lanes x positions; kernel "
+              f"{row['ms']:.4f} ms (device {fmt_ms(row['device_ms'])}, 2 launches), plain "
+              f"{plain:.1f} ms (cpu), bound {row['bound_ms']:.4g} ms; segments "
+              f"{row['segments']}: exact {counts['exact']}, anchored {counts['anchored']}, "
+              f"re-run {counts['rerun']}, unmerged {counts['unmerged']} (share re-walked "
+              f"{row['rewalk_share']:.4f})")
+        return row
+
+    chain_rows = [chain_row(label, args, 3) for label, args in chain_bench.lanes(dev).items()]
+    results["chain"] = dict(chain_rows[0], plain_device="cpu", rows=chain_rows)
 
     # MK and Kraft at the main path's shapes. Histograms are the greedy
     # token histograms of the corpus cut into lanes: 4096 lanes of 1 KiB

@@ -116,6 +116,35 @@ def test_dp_segments_kernel_equals_model(cuda, seg, warm, seq_limit):
     assert int((st.eq(dp_cuda.ST_RERUN) | st.eq(dp_cuda.ST_SEQUENTIAL)).sum()) > 0
 
 
+@pytest.mark.parametrize("seg,warm", [(chain_cuda.SEG, chain_cuda.WARM), (100, 30)])
+def test_chain_segments_kernel_equals_model(cuda, seg, warm):
+    """Greedy steps of mixed data with a 16 KiB zero run, in lanes of
+    ragged lengths (0, 1, seg - 1, seg, seg + 1, past the last full
+    segment, n) and one start inside a segment, beside a lane whose steps
+    are all 3; n is no multiple of 4, so lanes start off the 16-byte
+    alignment of the bulk copies. The kernel's marks equal pointer
+    doubling's, and its segment status equals the schedule model's, so it
+    re-walked exactly the segments the model did."""
+    n = 65536
+    d = bytearray(mixed_corpus(n, seed=72)[:n])
+    d[8192 : 8192 + 16384] = bytes(16384)
+    lens, _ = match_tables_device_stacked(np.frombuffer(bytes(d), np.uint8), [(0, n)], n, cuda)
+    rl = lens[0, HALO : HALO + n, 0]
+    greedy = torch.nn.functional.pad(torch.where(rl >= 3, rl, 1), (0, 3), value=1)
+    lengths = [n, 0, 1, seg - 1, seg, seg + 1, ((n - 1) // seg) * seg + 3, n + 3, n + 3]
+    starts = [0] * 7 + [2 * seg + 37, 0]
+    step = torch.stack([greedy] * 8 + [torch.full_like(greedy, 3)]).to(torch.int32).contiguous()
+    start = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    length = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got, st = chain_cuda.chain_marks(step, start, length, status=True, seg=seg, warm=warm)
+    torch.cuda.synchronize()
+    cpu = (step.cpu(), start.cpu(), length.cpu())
+    assert torch.equal(got.cpu(), chain_cuda.chain_marks_plain(*cpu))
+    _, want_st = chain_cuda.chain_segments_model(*cpu, seg, warm)
+    assert torch.equal(st.cpu(), want_st)
+    assert int(st.eq(chain_cuda.ST_UNMERGED).sum()) > 0
+
+
 @pytest.mark.parametrize("S,B", [(19, 805), (32, 4099), (288, 70)])
 def test_mk_and_kraft_kernels_equal_plain(cuda, S, B):
     """Weights from 1 to 2^20 on a random share of the symbols (some
