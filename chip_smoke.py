@@ -5,17 +5,20 @@
 Builds the CUDA kernels from zultra_tpu_torch/csrc/ (one nvcc per source,
 sm_90a), holds each kernel against its plain PyTorch version: the five
 of the compression path (walk, DP, chain, MK, Kraft) at the shapes the
-one-shot path gives them (the DP also on every planner bucket of the
-4 MiB gzip case, a 64 KiB zero run and a 2^21 lane, with the share of
-segments its fix-up re-ran; the chain on the splitter's lanes, every
-planner bucket, a 64 KiB zero run and a 2^21 lane of 3s, with the share
-of segments it re-walked), and the two that no path runs (matchlen, byte
-histogram) on the match pairs and bytes of the 4 MiB corpus, a 64 MiB
-buffer and seeded edge cases. Then compresses every case of
-zultra_tpu_torch/smoke_golden.json in one shot: a seeded 4 MiB mixed
-corpus in gzip (four 1 MiB windows in one device batch), then deflate,
-zlib at 64 KiB blocks, a preset dictionary, incompressible bytes and
-2 MiB at 64 KiB blocks (33 windows, three device batches). Then streams
+one-shot path gives them (the walk on the 128 segments of the 4 MiB
+gzip case and on single segments of a zero run, a period-3 run, random
+bytes and a partial core, with each launch's device time; the DP also
+on every planner bucket of the 4 MiB gzip case, a 64 KiB zero run and a
+2^21 lane, with the share of segments its fix-up re-ran; the chain on
+the splitter's lanes, every planner bucket, a 64 KiB zero run and a 2^21
+lane of 3s, with the share of segments it re-walked), and the two that
+no path runs (matchlen, byte histogram) on the match pairs and bytes of
+the 4 MiB corpus, a 64 MiB buffer and seeded edge cases. Then
+compresses every case of zultra_tpu_torch/smoke_golden.json in one
+shot: a seeded 4 MiB mixed corpus in gzip (four 1 MiB windows in one
+device batch), then deflate, zlib at 64 KiB blocks, a preset
+dictionary, incompressible bytes and 2 MiB at 64 KiB blocks (33
+windows, three device batches). Then streams
 the gzip and the 33-window cases through ``Stream`` in 16 KiB chunks, and
 runs the CLI (``-c``, ``-cbench``, ``-quicktest``). Each compression must
 rebuild the recorded input (sha256), match the recorded output digest
@@ -79,9 +82,11 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_ms(fn, kernel: str, reps: int):
     """Mean device milliseconds per call spent in the CUDA kernels
-    ``{kernel}_kernel`` and ``{kernel}_{phase}_kernel`` (torch.profiler
-    trace of ``reps`` calls after one warm-up), without the host time of
-    the wrapper around them; None when the trace holds no such kernel."""
+    ``{kernel}_kernel`` and ``{kernel}_{phase}_kernel``, each launched
+    once a call (torch.profiler trace of ``reps`` calls after one
+    warm-up; each kernel's time averaged over the launches the trace
+    recorded, as a trace may drop some), without the host time of the
+    wrapper around them; None when the trace holds no such kernel."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -89,8 +94,9 @@ def device_ms(fn, kernel: str, reps: int):
             fn()
         torch.cuda.synchronize()
     name = re.compile(rf"::{kernel}(?:_[a-z]+)?_kernel\(")
-    us = sum(ev.self_device_time_total for ev in prof.key_averages() if name.search(ev.key))
-    return us / 1e3 / reps if us else None
+    us = sum(ev.self_device_time_total / ev.count for ev in prof.key_averages()
+             if name.search(ev.key) and ev.count)
+    return us / 1e3 if us else None
 
 
 def fmt_ms(ms) -> str:
@@ -154,7 +160,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: nothing to smoke-test", file=sys.stderr)
         return 2
-    from zultra_tpu_torch import FINALIZE, Stream, _build, chain_bench, cli, compress_device
+    from zultra_tpu_torch import (
+        FINALIZE,
+        Stream,
+        _build,
+        chain_bench,
+        cli,
+        compress_device,
+        walk_bench,
+    )
     from zultra_tpu_torch.corpus import case_inputs
     from zultra_tpu_torch.ops import (
         block_torch,
@@ -174,13 +188,7 @@ def main() -> int:
         mk_inputs,
         mk_lengths,
     )
-    from zultra_tpu_torch.ops.matchfinder_torch import (
-        HALO,
-        SEG_CORE,
-        build_segments,
-        match_tables_device_stacked,
-        salcp_batch,
-    )
+    from zultra_tpu_torch.ops.matchfinder_torch import HALO, match_tables_device_stacked
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -195,7 +203,7 @@ def main() -> int:
     _build.lib()
     print(f"build: {_build.library_path().name} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds:.2f} s)")
-    for src in ("dp", "chain"):
+    for src in ("walk", "dp", "chain"):
         for line in _build.build_log.get(src, "").splitlines():
             if line.strip():
                 print(f"nvcc -Xptxas -v {src}.cu: {line.strip()}")
@@ -216,20 +224,6 @@ def main() -> int:
     mbs = 1 << 20
     spans = [(lo, min(lo + mbs, len(data))) for lo in range(0, len(data), mbs)]
     results = {}
-
-    segbufs, _ = build_segments(corpus, spans, SEG_CORE)
-    salcp_all = salcp_batch(torch.from_numpy(segbufs).to(dev))
-    one = salcp_all[len(segbufs) // 2 :][:1].contiguous()
-    got = walk_cuda.walk_segments(one, HALO, SEG_CORE)
-    want, plain = host_ms(lambda: walk_cuda.walk_segments_plain(one.cpu(), HALO, SEG_CORE))
-    results["walk"] = dict(
-        shape=list(one.shape), max_abs_err=compare("walk", got, want), plain_ms=plain,
-        plain_device="cpu", ms=cuda_ms(lambda: walk_cuda.walk_segments(one, HALO, SEG_CORE), 3),
-        bound_ms=bound_ms(one, got),
-        main_path_ms=cuda_ms(lambda: walk_cuda.walk_segments(salcp_all, HALO, SEG_CORE), 2))
-    print(f"walk: equal on one segment {tuple(one.shape)}; kernel {results['walk']['ms']:.3f} ms, "
-          f"plain {plain:.1f} ms (cpu); all {len(segbufs)} segments "
-          f"{results['walk']['main_path_ms']:.3f} ms")
 
     lens, offs = match_tables_device_stacked(corpus, spans, mbs, dev)
 
@@ -327,6 +321,34 @@ def main() -> int:
 
     chain_rows = [chain_row(label, args, 3) for label, args in chain_bench.lanes(dev).items()]
     results["chain"] = dict(chain_rows[0], plain_device="cpu", rows=chain_rows)
+
+    # Walk: walk_bench's segments (the main path's call on the 128 segments
+    # of the gzip case, one zero run, one period-3 run, one of random bytes,
+    # one partial core), each against the plain walk on the host, with the
+    # device time of each of its three launches (sweep, park, chunk walk).
+    # It comes after the chain: with a profiler trace taken ahead of the
+    # compressions above, the chain's traces recorded none of its kernels.
+    walk_rows = []
+    for label, (salcp, halo, core) in walk_bench.segments(dev).items():
+        S, n = salcp.shape
+
+        def walk_call():
+            return walk_cuda.walk_segments(salcp, halo, core)
+
+        got = walk_call()
+        want, plain = host_ms(lambda: walk_cuda.walk_segments_plain(salcp.cpu(), halo, core))
+        row = dict(batch=label, shape=[S, n], core_len=core,
+                   max_abs_err=compare(f"walk [{label}]", got, want), plain_ms=plain,
+                   ms=cuda_ms(walk_call, 3), device_ms=walk_bench.kernel_ms(walk_call, 3),
+                   chunk=walk_cuda.CHUNK, scratch_bytes=walk_cuda.scratch_bytes(S, n, core),
+                   bound_ms=bound_ms(salcp, got))
+        per_launch = ", ".join(f"{k.removeprefix('walk_').removesuffix('_kernel')} {v:.4f}"
+                               for k, v in row["device_ms"].items())
+        print(f"walk [{label}]: equal on {S} x {n} words, core {core}; kernel {row['ms']:.4f} ms "
+              f"(device ms per launch: {per_launch}), plain {plain:.1f} ms (cpu), bound "
+              f"{row['bound_ms']:.4g} ms; chunk {row['chunk']}, scratch {row['scratch_bytes']} B")
+        walk_rows.append(row)
+    results["walk"] = dict(walk_rows[0], plain_device="cpu", rows=walk_rows)
 
     # MK and Kraft at the main path's shapes. Histograms are the greedy
     # token histograms of the corpus cut into lanes: 4096 lanes of 1 KiB

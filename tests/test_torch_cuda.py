@@ -58,6 +58,36 @@ def test_walk_kernel_equals_plain(cuda):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("kind", ["zero run", "period 3", "partial core", "odd n"])
+def test_walk_kernel_equals_plain_edge(cuda, kind):
+    """The walk's deep trees (a zero run nests intervals of LCP 3..258, a
+    period-3 run as deep), a partial last core (its last chunk cut short),
+    and four segments of an odd width, so that their words start on each
+    of the four 4-byte offsets from the sweep's 16-byte staging."""
+    n = HALO + SEG_CORE + 258
+    halo, core = HALO, SEG_CORE
+    if kind == "zero run":
+        bufs = np.zeros((1, n), np.int32)
+    elif kind == "period 3":
+        bufs = np.resize(np.array([7, 7, 9], np.int32), (1, n))
+    else:
+        corpus = _corpus(100_000)
+        if kind == "partial core":
+            bufs = build_segments(corpus, [(0, len(corpus))], SEG_CORE)[0][1:2]
+            core = SEG_CORE - 12345
+        else:
+            n, halo, core = 20001, 5000, 14000
+            bufs = np.stack([256 + np.arange(n, dtype=np.int32) for _ in range(4)])
+            for s in range(4):
+                bufs[s, : n - 300] = corpus[s * 20000 :][: n - 300]
+    salcp = salcp_batch(torch.from_numpy(bufs).to(cuda))
+    got = walk_cuda.walk_segments(salcp, halo, core)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), walk_cuda.walk_segments_plain(salcp.cpu(), halo, core))
+    for chunk in (1024, core):  # 32 chunks (the most) and one
+        assert torch.equal(walk_cuda.walk_segments(salcp, halo, core, chunk), got)
+
+
 def test_dp_and_chain_kernels_equal_plain(cuda):
     corpus = _corpus()
     mbs = 65536

@@ -34,7 +34,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # C signature of every kernel entry point; each returns cudaGetLastError().
 _SIGNATURES = {
-    "zt_walk": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "zt_walk": [_VP] * 4 + [_I] * 5 + [_VP],
     "zt_dp": [_VP] * 9 + [_I] * 5 + [_VP],
     "zt_chain": [_VP] * 6 + [_I] * 4 + [_VP],
     "zt_mk12": [_VP, _VP, _VP, _I, _I, _VP],
