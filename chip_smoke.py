@@ -11,7 +11,10 @@ bytes and a partial core, with each launch's device time; the DP also
 on every planner bucket of the 4 MiB gzip case, a 64 KiB zero run and a
 2^21 lane, with the share of segments its fix-up re-ran; the chain on
 the splitter's lanes, every planner bucket, a 64 KiB zero run and a 2^21
-lane of 3s, with the share of segments it re-walked), and the two that
+lane of 3s, with the share of segments it re-walked; MK and Kraft on the
+splitter's and planner's batches, the path's own widths of 1, 4 and 84
+lanes at 288, 32 and 19 symbols, a misaligned copy, edge lanes and the
+launch floor, each with its device time per launch), and the two that
 no path runs (matchlen, byte histogram) on the match pairs and bytes of
 the 4 MiB corpus, a 64 MiB buffer and seeded edge cases. Then
 compresses every case of zultra_tpu_torch/smoke_golden.json in one
@@ -85,18 +88,22 @@ def device_ms(fn, kernel: str, reps: int):
     ``{kernel}_kernel`` and ``{kernel}_{phase}_kernel``, each launched
     once a call (torch.profiler trace of ``reps`` calls after one
     warm-up; each kernel's time averaged over the launches the trace
-    recorded, as a trace may drop some), without the host time of the
-    wrapper around them; None when the trace holds no such kernel."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    recorded, as a trace may drop some; a trace that recorded none is
+    taken again, up to three times), without the host time of the
+    wrapper around them; None when no trace holds such a kernel."""
     name = re.compile(rf"::{kernel}(?:_[a-z]+)?_kernel\(")
-    us = sum(ev.self_device_time_total / ev.count for ev in prof.key_averages()
-             if name.search(ev.key) and ev.count)
-    return us / 1e3 if us else None
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.self_device_time_total / ev.count for ev in prof.key_averages()
+                 if name.search(ev.key) and ev.count)
+        if us:
+            return us / 1e3
+    return None
 
 
 def fmt_ms(ms) -> str:
@@ -203,7 +210,7 @@ def main() -> int:
     _build.lib()
     print(f"build: {_build.library_path().name} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds:.2f} s)")
-    for src in ("walk", "dp", "chain"):
+    for src in ("walk", "dp", "chain", "mk"):
         for line in _build.build_log.get(src, "").splitlines():
             if line.strip():
                 print(f"nvcc -Xptxas -v {src}.cu: {line.strip()}")
@@ -353,7 +360,14 @@ def main() -> int:
     # MK and Kraft at the main path's shapes. Histograms are the greedy
     # token histograms of the corpus cut into lanes: 4096 lanes of 1 KiB
     # (the splitter's batch for four 1 MiB windows: 4 x 2 x trig_cap 512),
-    # and 40 lanes of 64 KiB (a planner bucket; 40 is no multiple of 32).
+    # 40 lanes of 64 KiB (the first kernel's planner row; 40 is no multiple
+    # of 32), and the planner's own batch widths, 1, 4 and 84 lanes (of
+    # 32 KiB), at S = 288, 32 and the CL alphabet's 19. Then a misaligned
+    # copy of a batch in each MK layout (a base 4 bytes past a 16-byte
+    # boundary), edge lanes (all weights equal, n_used 0, 1, 2, 3 and S) in
+    # each MK layout, and the launch floor: one lane of 2 symbols. Each row is
+    # held exactly against its plain form, with ms by events and the
+    # device ms of a launch from a trace.
     def lane_hists(n_lanes, lane_len):
         lw = torch.from_numpy(corpus[: n_lanes * lane_len].copy()).to(dev).view(n_lanes, lane_len)
         lr = lens[:, HALO:, 0].reshape(-1, lane_len)[:n_lanes].contiguous()
@@ -361,42 +375,95 @@ def main() -> int:
         ln = torch.full((n_lanes,), lane_len, dtype=torch.int32, device=dev)
         return block_torch.token_hist(lw, lr, lo, ln)[:2]
 
+    def edge_hists(B, S):
+        erng = np.random.default_rng(S)
+        h = np.zeros((B, S), np.int32)
+        for b in range(B):
+            kind = b % 6
+            if kind == 0:
+                h[b] = 9
+            else:
+                used = (0, 1, 2, 3, S)[kind - 1]
+                h[b, erng.permutation(S)[:used]] = erng.integers(1, 1000, used)
+        return torch.from_numpy(h).to(dev)
+
+    def misaligned(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+        return buf.view(x.shape).copy_(x)
+
     split_lit, split_off = lane_hists(4096, 1024)
     plan_lit, plan_off = lane_hists(40, 65536)
     cl_hists = mask_histograms(build_lengths(plan_lit, 15), build_lengths(plan_off, 15))[0]
+    small_lit, small_off = lane_hists(84, 32768)
+    small_cl = mask_histograms(build_lengths(small_lit, 15), build_lengths(small_off, 15))[0]
     rng = np.random.default_rng(0)
     skewed = torch.from_numpy((2 ** rng.integers(0, 21, (4096, 288))).astype(np.int32)).to(dev)
 
     def shape_row(name, kernel, plain_fn, args, **extra):
         got = kernel(*args)
         want = plain_fn(*args)
-        row = dict(shape=list(args[0].shape), max_abs_err=compare(name, got, want),
+        B = args[0].shape[0]
+        row = dict(shape=list(args[0].shape), max_abs_err=compare(f"{name} {extra}", got, want),
                    ms=cuda_ms(lambda: kernel(*args), 20),
+                   device_ms=device_ms(lambda: kernel(*args), name, 20),
                    plain_ms=cuda_ms(lambda: plain_fn(*args), 1),
-                   bound_ms=bound_ms(*[a for a in args if torch.is_tensor(a)], got), **extra)
+                   bound_ms=bound_ms(*[a for a in args if torch.is_tensor(a)], got),
+                   layout=("thread per lane" if name == "mk12" and B > mk_cuda.WARP_LANES
+                           else "warp per lane"), **extra)
         print(f"{name} [{', '.join(f'{k} {v}' for k, v in extra.items())}]: equal on "
-              f"{tuple(args[0].shape)}; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.2f} ms "
-              f"(cuda), bound {row['bound_ms']:.3g} ms")
+              f"{tuple(args[0].shape)} ({row['layout']}, base mod 16 = {args[0].data_ptr() % 16});"
+              f" kernel {row['ms']:.4f} ms (device {fmt_ms(row['device_ms'])}), plain "
+              f"{row['plain_ms']:.2f} ms (cuda), bound {row['bound_ms']:.3g} ms")
         return row
 
-    mk_rows = []
-    for label, h in (("splitter 288", split_lit), ("splitter 32", split_off),
-                     ("planner 288", plan_lit), ("planner 32", plan_off),
-                     ("mask search 19", cl_hists)):
+    def mk_row(label, h, misalign=False):
         a0, n_used, _ = mk_inputs(h)
-        mk_rows.append(shape_row("mk12", mk_cuda.mk_phase12, mk_cuda.mk_phase12_plain,
-                                 (a0, n_used), batch=label))
-    kraft_rows = []
-    for label, h, max_len in (("planner 288", plan_lit, 15), ("planner 32", plan_off, 15),
-                              ("mask search 19", cl_hists, 7), ("skewed 288", skewed, 15)):
+        if misalign:
+            a0 = misaligned(a0)
+        return shape_row("mk12", mk_cuda.mk_phase12, mk_cuda.mk_phase12_plain, (a0, n_used),
+                         batch=label)
+
+    def kraft_row(label, h, max_len, misalign=False):
         lens_in, n_used, kraft0, _, _ = kraft_inputs(mk_lengths(h), max_len)
-        repair = int((kraft0 > (1 << max_len)).sum())
-        kraft_rows.append(shape_row(
+        if misalign:
+            lens_in = misaligned(lens_in)
+        return shape_row(
             "kraft", lambda *a: mk_cuda.kraft_limit(*a, max_len),
             lambda *a: mk_cuda.kraft_limit_plain(*a, max_len), (lens_in, n_used, kraft0),
-            batch=label, max_len=max_len, repair_lanes=repair))
+            batch=label, max_len=max_len,
+            repair_lanes=int((kraft0 > (1 << max_len)).sum()),
+            fit_lanes=int((kraft0 == (1 << max_len)).sum()))
+
+    mk_rows = [mk_row(label, h) for label, h in (
+        ("splitter 288", split_lit), ("splitter 32", split_off), ("planner 288", plan_lit),
+        ("planner 32", plan_off), ("mask search 19", cl_hists))]
+    kraft_rows = [kraft_row(label, h, max_len) for label, h, max_len in (
+        ("planner 288", plan_lit, 15), ("planner 32", plan_off, 15),
+        ("mask search 19", cl_hists, 7), ("skewed 288", skewed, 15))]
     if kraft_rows[-1]["repair_lanes"] == 0:
         raise SystemExit("kraft: the skewed batch has no lane that needs the repair")
+    for B in (1, 4, 84):
+        for S, h, max_len in ((288, small_lit, 15), (32, small_off, 15), (19, small_cl, 7)):
+            mk_rows.append(mk_row(f"path {B} x {S}", h[:B]))
+            kraft_rows.append(kraft_row(f"path {B} x {S}", h[:B], max_len))
+    for label, h in (("misaligned splitter 288", split_lit), ("misaligned 84 x 288", small_lit)):
+        mk_rows.append(mk_row(label, h, misalign=True))
+    for label, h in (("misaligned skewed 288", skewed), ("misaligned 84 x 288", small_lit)):
+        kraft_rows.append(kraft_row(label, h, 15, misalign=True))
+    for S in (19, 32, 288):
+        for B in (6, 600):
+            mk_rows.append(mk_row(f"edge lanes {B} x {S}", edge_hists(B, S)))
+            for max_len in (7, 15):
+                kraft_rows.append(kraft_row(f"edge lanes {B} x {S}", edge_hists(B, S), max_len))
+    floor_args = (torch.ones((1, 2), dtype=torch.int32, device=dev),
+                  torch.full((1,), 2, dtype=torch.int32, device=dev))
+    mk_rows.append(shape_row("mk12", mk_cuda.mk_phase12, mk_cuda.mk_phase12_plain, floor_args,
+                             batch="launch floor 1 x 2"))
+    kraft_rows.append(shape_row(
+        "kraft", lambda *a: mk_cuda.kraft_limit(*a, 15),
+        lambda *a: mk_cuda.kraft_limit_plain(*a, 15),
+        (*floor_args, torch.full((1,), 1 << 15, dtype=torch.int32, device=dev)),
+        batch="launch floor 1 x 2", max_len=15))
     results["mk12"] = dict(mk_rows[0], plain_device="cuda", rows=mk_rows)
     results["kraft"] = dict(kraft_rows[0], plain_device="cuda", rows=kraft_rows)
 

@@ -175,26 +175,61 @@ def test_chain_segments_kernel_equals_model(cuda, seg, warm):
     assert int(st.eq(chain_cuda.ST_UNMERGED).sum()) > 0
 
 
-@pytest.mark.parametrize("S,B", [(19, 805), (32, 4099), (288, 70)])
-def test_mk_and_kraft_kernels_equal_plain(cuda, S, B):
-    """Weights from 1 to 2^20 on a random share of the symbols (some
-    lanes empty or single-symbol), so MK gives codes far past the limit
-    and Kraft repairs them; B is no multiple of 32."""
-    rng = np.random.default_rng(S)
+def _mk_batch(rng, B, S):
+    """Weights from 1 to 2^20 on a random share of the symbols (some lanes
+    empty or single-symbol), so MK gives codes far past the limit and
+    Kraft repairs them; every 8th lane from the first is an edge lane in
+    turn: all weights equal (every pick a tie), n_used 0, 1, 2, 3 and S."""
     w = (2 ** rng.integers(0, 21, (B, S))).astype(np.int32)
     h = np.where(rng.random((B, S)) < rng.random((B, 1)), w, 0).astype(np.int32)
-    hist = torch.from_numpy(h).to(cuda)
+    for b in range(0, B, 8):
+        kind = (b // 8) % 6
+        if kind == 0:
+            h[b] = 9
+        else:
+            h[b] = 0
+            used = {1: 0, 2: 1, 3: 2, 4: 3, 5: S}[kind]
+            h[b, rng.permutation(S)[:used]] = rng.integers(1, 1000, used)
+    return h
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` whose base is 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    return buf.view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize("S", [19, 32, 288])
+@pytest.mark.parametrize("B", [1, 31, 33, 4099])
+def test_mk_and_kraft_kernels_equal_plain(cuda, S, B):
+    """Both layouts of the MK kernel (a warp per lane, a thread per lane)
+    and the Kraft kernel, on an aligned and a misaligned copy of the rows,
+    equal the plain forms on skewed batches with edge lanes; Kraft at 7
+    and 15 bits, and on a batch in which every lane fits (a copy)."""
+    rng = np.random.default_rng(S * 10007 + B)
+    hist = torch.from_numpy(_mk_batch(rng, B, S)).to(cuda)
     a0, n_used, _ = mk_inputs(hist)
-    got = mk_cuda.mk_phase12(a0, n_used)
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), mk_cuda.mk_phase12_plain(a0.cpu(), n_used.cpu()))
-    for max_len in (7, 15):
-        lens, n_used, kraft0, _, _ = kraft_inputs(mk_lengths(hist), max_len)
-        assert bool((kraft0 > (1 << max_len)).any())
-        got = mk_cuda.kraft_limit(lens, n_used, kraft0, max_len)
-        torch.cuda.synchronize()
+    want = mk_cuda.mk_phase12_plain(a0.cpu(), n_used.cpu())
+    assert torch.equal(mk_cuda.mk_phase12(a0, n_used).cpu(), want)
+    for warp in (True, False):
+        for rows in (a0, _misaligned(a0)):
+            got = mk_cuda._launch_mk12(rows, n_used, warp)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (warp, rows.data_ptr() % 16)
+    dense = torch.from_numpy(rng.integers(200, 400, (B, S)).astype(np.int32)).to(cuda)
+    for h, max_len, fit in ((hist, 7, False), (hist, 15, False), (dense, 15, True)):
+        lens, n_used, kraft0, _, _ = kraft_inputs(mk_lengths(h), max_len)
+        full = 1 << max_len
+        if fit:
+            assert bool((kraft0 == full).all())
+        elif B > 1:
+            assert bool((kraft0 > full).any())
         want = mk_cuda.kraft_limit_plain(lens.cpu(), n_used.cpu(), kraft0.cpu(), max_len)
-        assert torch.equal(got.cpu(), want)
+        for rows in (lens, _misaligned(lens)):
+            got = mk_cuda.kraft_limit(rows, n_used, kraft0, max_len)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (max_len, rows.data_ptr() % 16)
 
 
 def test_one_shot_equals_native(cuda):
