@@ -15,8 +15,11 @@ lane of 3s, with the share of segments it re-walked; MK and Kraft on the
 splitter's and planner's batches, the path's own widths of 1, 4 and 84
 lanes at 288, 32 and 19 symbols, a misaligned copy, edge lanes and the
 launch floor, each with its device time per launch), and the two that
-no path runs (matchlen, byte histogram) on the match pairs and bytes of
-the 4 MiB corpus, a 64 MiB buffer and seeded edge cases. Then
+no path runs: matchlen on the match pairs of the 4 MiB corpus (with
+their length distribution), a seeded edge batch and
+``matchlen_cuda.edge_pairs`` at every base offset 0-15; the byte
+histogram on the 4 MiB corpus, an unaligned view, 64 MiB of seeded
+bytes and 64 MiB of one value, beside ``torch.bincount``. Then
 compresses every case of zultra_tpu_torch/smoke_golden.json in one
 shot: a seeded 4 MiB mixed corpus in gzip (four 1 MiB windows in one
 device batch), then deflate, zlib at 64 KiB blocks, a preset
@@ -38,7 +41,6 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
-import re
 import subprocess
 import sys
 import tempfile
@@ -50,7 +52,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 GOLDEN = Path(__file__).resolve().parent / "zultra_tpu_torch" / "smoke_golden.json"
@@ -81,29 +82,6 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, kernel: str, reps: int):
-    """Mean device milliseconds per call spent in the CUDA kernels
-    ``{kernel}_kernel`` and ``{kernel}_{phase}_kernel``, each launched
-    once a call (torch.profiler trace of ``reps`` calls after one
-    warm-up; each kernel's time averaged over the launches the trace
-    recorded, as a trace may drop some; a trace that recorded none is
-    taken again, up to three times), without the host time of the
-    wrapper around them; None when no trace holds such a kernel."""
-    name = re.compile(rf"::{kernel}(?:_[a-z]+)?_kernel\(")
-    for _ in range(3):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(ev.self_device_time_total / ev.count for ev in prof.key_averages()
-                 if name.search(ev.key) and ev.count)
-        if us:
-            return us / 1e3
-    return None
 
 
 def fmt_ms(ms) -> str:
@@ -174,9 +152,11 @@ def main() -> int:
         chain_bench,
         cli,
         compress_device,
+        matchlen_hist_bench,
         walk_bench,
     )
     from zultra_tpu_torch.corpus import case_inputs
+    from zultra_tpu_torch.matchlen_hist_bench import trace_ms as device_ms
     from zultra_tpu_torch.ops import (
         block_torch,
         chain_cuda,
@@ -210,7 +190,7 @@ def main() -> int:
     _build.lib()
     print(f"build: {_build.library_path().name} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds:.2f} s)")
-    for src in ("walk", "dp", "chain", "mk"):
+    for src in ("walk", "dp", "chain", "mk", "matchlen", "histogram"):
         for line in _build.build_log.get(src, "").splitlines():
             if line.strip():
                 print(f"nvcc -Xptxas -v {src}.cu: {line.strip()}")
@@ -468,53 +448,62 @@ def main() -> int:
     results["kraft"] = dict(kraft_rows[0], plain_device="cuda", rows=kraft_rows)
 
     # matchlen: the pair (i, i - offset) of every position of the 4 MiB
-    # corpus whose first match row has length >= 3, then a seeded edge
-    # batch on a copy of the first 1 MiB with a 300-byte run.
+    # corpus whose first match row has length >= 3, with the share of
+    # their lengths at most 8, 16, 32 and 64 bytes and at 258 (it sets
+    # matchlen_cuda.HEAD); a seeded edge batch on a copy of the first
+    # 1 MiB with a 300-byte run; matchlen_cuda.edge_pairs (every p, q mod
+    # 16, lengths around each head width, 258 and the cap, spans to the
+    # end, bad indices) with the data at every base offset 0-15, ending
+    # at the end of its buffer.
     corpus_dev = torch.from_numpy(corpus.copy()).to(dev)
-    at = (torch.tensor([lo for lo, _ in spans], device=dev)[:, None]
-          + torch.arange(mbs, device=dev)[None, :])
-    has = (lens[:, HALO:, 0] >= 3) & (at < len(corpus))
-    ml_pos = at[has].to(torch.int32).contiguous()
-    ml_prev = (at - offs[:, HALO:, 0])[has].to(torch.int32).contiguous()
-    edge = corpus[:mbs].copy()
-    run_at = 500_000
-    edge[run_at : run_at + 300] = 7
-    n_e = len(edge)
-    erng = np.random.default_rng(3)
-    same = erng.integers(0, n_e, 4000)
-    tail = erng.integers(n_e - 258, n_e, 4000)
-    e_pos = np.concatenate([same, tail, n_e + erng.integers(0, 50, 100), [n_e - 1, n_e],
-                            run_at + 1 + np.arange(299), erng.integers(0, n_e, 4000)])
-    e_prev = np.concatenate([same, tail - erng.integers(1, 2000, 4000), erng.integers(0, n_e, 100),
-                             [n_e - 2, 0], run_at + np.arange(299), erng.integers(0, n_e, 4000)])
-    edge_args = (torch.from_numpy(edge).to(dev), torch.from_numpy(e_pos.astype(np.int32)).to(dev),
-                 torch.from_numpy(e_prev.astype(np.int32)).to(dev))
+    ml_pos, ml_prev = matchlen_hist_bench.match_pairs(corpus, lens, offs, mbs)
+    edge_args = matchlen_hist_bench.edge_batch(corpus, dev)
+    p_data, p_pos, p_prev = matchlen_cuda.edge_pairs()
+    planted = [torch.empty(off + len(p_data), dtype=torch.uint8, device=dev)[off:]
+               for off in range(16)]
+    for x in planted:
+        x.copy_(torch.from_numpy(p_data))
+    p_pos, p_prev = torch.from_numpy(p_pos).to(dev), torch.from_numpy(p_prev).to(dev)
     ml_rows = []
     for label, args in (("corpus match pairs", (corpus_dev, ml_pos, ml_prev)),
-                        ("edge batch", edge_args)):
+                        ("edge batch", edge_args),
+                        ("edge pairs, base offsets 0-15", (planted[0], p_pos, p_prev))):
         got = matchlen_cuda.match_lengths(*args)
         want, plain = host_ms(lambda: matchlen_cuda.match_lengths_plain(*args).cpu())
-        ml_rows.append(dict(batch=label, pairs=int(args[1].numel()), max_abs_err=compare(
-            "matchlen", got, want), ms=cuda_ms(lambda: matchlen_cuda.match_lengths(*args), 10),
+        err = compare("matchlen", got, want)
+        if label.startswith("edge pairs"):
+            for off, x in enumerate(planted[1:], 1):
+                compare(f"matchlen at base offset {off}",
+                        matchlen_cuda.match_lengths(x, p_pos, p_prev), want)
+        ml_rows.append(dict(batch=label, pairs=int(args[1].numel()), max_abs_err=err,
+            ms=cuda_ms(lambda: matchlen_cuda.match_lengths(*args), 10),
             device_ms=device_ms(lambda: matchlen_cuda.match_lengths(*args), "matchlen", 10),
-            plain_ms=plain, bound_ms=bound_ms(*args, got),
+            plain_ms=plain, bound_ms=bound_ms(*args, got), head=matchlen_cuda.HEAD,
             n_258=int((got == 258).sum())))
         r = ml_rows[-1]
+        if label == "corpus match pairs":
+            r["length_shares"] = {**{f"le_{k}": int((want <= k).sum()) / max(want.numel(), 1)
+                                     for k in (8, 16, 32, 64)},
+                                  "eq_258": int((want == 258).sum()) / max(want.numel(), 1)}
         print(f"matchlen [{label}]: equal on {args[1].numel()} pairs over {args[0].numel()} B; "
               f"kernel {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), plain {plain:.1f} ms "
-              f"(cuda), bound {r['bound_ms']:.4g} ms; {r['n_258']} pairs at 258")
-    if ml_rows[1]["n_258"] < 1:
-        raise SystemExit("matchlen: the edge batch has no pair at the 258 cap")
+              f"(cuda), bound {r['bound_ms']:.4g} ms; {r['n_258']} pairs at 258"
+              + (f"; lengths {r['length_shares']}" if "length_shares" in r else ""))
+    if ml_rows[1]["n_258"] < 1 or ml_rows[2]["n_258"] < 1:
+        raise SystemExit("matchlen: an edge batch has no pair at the 258 cap")
     results["matchlen"] = dict(ml_rows[0], plain_device="cuda", rows=ml_rows)
 
     # Byte histogram: the 4 MiB corpus (n_symbols 256 and 200, and an
-    # unaligned view), and a seeded 64 MiB buffer, past the TPU kernel's
-    # 2^24-byte chunk. Each against its plain form and torch.bincount.
+    # unaligned view), a seeded 64 MiB buffer, past the TPU kernel's
+    # 2^24-byte chunk, and 64 MiB of one value (every count on one bin).
+    # Each against its plain form and torch.bincount, with the device time
+    # of the kernel, of all of a call's kernels and of bincount's.
     big = torch.from_numpy(np.random.default_rng(4).integers(0, 256, 64 << 20, np.uint8)).to(dev)
+    one = torch.full((64 << 20,), 211, dtype=torch.uint8, device=dev)
     hist_rows = []
     for label, x, n_sym in (("4 MiB corpus", corpus_dev, 256), ("4 MiB corpus", corpus_dev, 200),
                             ("corpus[1:] (unaligned)", corpus_dev[1:], 256),
-                            ("64 MiB seeded", big, 256)):
+                            ("64 MiB seeded", big, 256), ("64 MiB one value", one, 256)):
         got = histogram_cuda.byte_histogram(x, n_sym)
         want = histogram_cuda.byte_histogram_plain(x, n_sym)
         lib = torch.bincount(x, minlength=256)[:n_sym]
@@ -524,16 +513,18 @@ def main() -> int:
             batch=label, n=int(x.numel()), n_symbols=n_sym, max_abs_err=err,
             ms=cuda_ms(lambda: histogram_cuda.byte_histogram(x, n_sym), 20),
             device_ms=device_ms(lambda: histogram_cuda.byte_histogram(x, n_sym), "hist", 20),
+            call_device_ms=device_ms(lambda: histogram_cuda.byte_histogram(x, n_sym), None, 20),
             plain_ms=cuda_ms(lambda: histogram_cuda.byte_histogram_plain(x, n_sym), 5),
             library_ms=cuda_ms(lambda: torch.bincount(x, minlength=256), 20),
+            library_device_ms=device_ms(lambda: torch.bincount(x, minlength=256), None, 20),
             bound_ms=bound_ms(x, got)))
         r = hist_rows[-1]
         print(f"hist [{label}, n_symbols {n_sym}]: equal to its plain form and to "
               f"torch.bincount on {x.numel()} B; kernel {r['ms']:.4f} ms (device "
-              f"{fmt_ms(r['device_ms'])}), plain "
-              f"{r['plain_ms']:.4f} ms, bincount {r['library_ms']:.4f} ms (cuda), bound "
-              f"{r['bound_ms']:.4g} ms")
-    del big
+              f"{fmt_ms(r['device_ms'])}, all of a call {fmt_ms(r['call_device_ms'])}), plain "
+              f"{r['plain_ms']:.4f} ms, bincount {r['library_ms']:.4f} ms (device "
+              f"{fmt_ms(r['library_device_ms'])}) (cuda), bound {r['bound_ms']:.4g} ms")
+    del big, one
     results["hist"] = dict(hist_rows[0], plain_device="cuda", rows=hist_rows)
 
     # -- the one-shot path end to end, every golden case ----------------

@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from torch.profiler import ProfilerActivity, profile
+
 import zultra_tpu as zt
 from zultra_tpu import engine
-from zultra_tpu_torch import FINALIZE, Stream, compress
+from zultra_tpu_torch import FINALIZE, Stream, compress, ops
 from zultra_tpu_torch.corpus import lz_data, mixed_corpus
 from zultra_tpu_torch.ops import (
     block_torch,
@@ -259,7 +261,12 @@ def test_many_windows_and_largest_block_equal_native(cuda):
 
 def test_matchlen_kernel_equals_plain(cuda):
     """Random pairs over binary data (long matches), pos == prev, pairs
-    near and past the end, and a 300-byte run; P is no multiple of 8."""
+    near and past the end, and a 300-byte run; P is no multiple of 8.
+    Then ``matchlen_cuda.edge_pairs`` (every p, q mod 16; lengths K - 1,
+    K and K + 1 of the head width K; 258 and the 259 cap; spans to the
+    end; negative and out-of-range indices) at every base offset 0-15,
+    the data ending at the end of its allocation, against the plain form
+    and the schedule's model."""
     rng = np.random.default_rng(5)
     data = rng.integers(0, 2, 100_003, dtype=np.uint8)
     data[5000:5300] = 9
@@ -276,21 +283,75 @@ def test_matchlen_kernel_equals_plain(cuda):
     assert torch.equal(got.cpu(), want)
     assert int(want.max()) == 258
 
+    e_data, e_pos, e_prev = matchlen_cuda.edge_pairs()
+    e_args = [torch.from_numpy(a) for a in (e_data, e_pos, e_prev)]
+    e_want = matchlen_cuda.match_lengths_plain(*e_args)
+    assert int((e_want == 258).sum()) > 64
+    pos_d, prev_d = e_args[1].to(cuda), e_args[2].to(cuda)
+    for off in range(16):
+        buf = torch.empty(off + len(e_data), dtype=torch.uint8, device=cuda)
+        x = buf[off:]
+        x.copy_(e_args[0].to(cuda))
+        got = matchlen_cuda.match_lengths(x, pos_d, prev_d)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), e_want), off
+        model, _ = matchlen_cuda.match_lengths_model(*e_args, x.data_ptr() % 16)
+        assert torch.equal(model, e_want)
 
-@pytest.mark.parametrize("n,offset,n_symbols", [(1, 0, 256), (15, 1, 256), (4097, 3, 200),
-                                                (1_000_003, 5, 300), (40 << 20, 0, 256)])
-def test_hist_kernel_equals_plain_and_bincount(cuda, n, offset, n_symbols):
-    """Unaligned views (the kernel's byte-wise head and tail), n_symbols
-    below and above 256, and 40 MiB (past the TPU kernel's 2^24 chunk)."""
-    rng = np.random.default_rng(n)
-    buf = torch.from_numpy(rng.integers(0, 256, n + offset, dtype=np.uint8)).to(cuda)
+
+HIST_CASES = [(1, 0, 256), (15, 1, 256), (4097, 3, 200), (1_000_003, 5, 300), (40 << 20, 0, 256)]
+HIST_CASES += [(n, off, 256) for n in (0, 1, 15, 16, 17) for off in (0, 7)]
+HIST_CASES += [(n, off, n_sym) for n in (16383, 16384, 16385)
+               for off, n_sym in ((0, 256), (9, 255))]
+HIST_CASES += [(70_001, off, n_sym) for off in range(16) for n_sym in (1, 255, 256, 257, 300)
+               if off % 5 == n_sym % 5]
+HIST_CASES += [(64 << 20, 0, 256, "one value")]
+
+
+@pytest.mark.parametrize("case", HIST_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_hist_kernel_equals_plain_and_bincount(cuda, case):
+    """Unaligned views (the kernel's byte-wise head and tail) at offsets
+    0-15, n = 0, 1, 15, 16, 17 and one block step (16384 bytes) +- 1,
+    n_symbols 1, 255, 256, 257 and 300, 40 MiB (past the TPU kernel's
+    2^24 chunk), and 64 MiB of one byte value (every count on one bin).
+    One call is one kernel launch."""
+    n, offset, n_symbols, *kind = case
+    rng = np.random.default_rng(n + offset)
+    if kind:
+        buf = torch.full((n + offset,), 211, dtype=torch.uint8, device=cuda)
+    else:
+        buf = torch.from_numpy(rng.integers(0, 256, n + offset, dtype=np.uint8)).to(cuda)
     x = buf[offset:]
+    before = ops.launch_counts()["hist"]
     got = histogram_cuda.byte_histogram(x, n_symbols)
+    assert ops.launch_counts()["hist"] == before + 1
     torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and got.shape == (n_symbols,)
     assert torch.equal(got.cpu(), histogram_cuda.byte_histogram_plain(x.cpu(), n_symbols))
     ref = torch.bincount(x, minlength=256)[:n_symbols]
     assert torch.equal(got[: ref.numel()], ref)
     assert int(got.sum()) == int((x.to(torch.int64) < n_symbols).sum())
+    if kind:
+        assert int(got[211]) == n
+    if n <= 1 << 20:
+        grid = histogram_cuda.grid_for(histogram_cuda.split(n, x.data_ptr())[1], 1 << 30)
+        model, _ = histogram_cuda.byte_histogram_model(x.cpu(), n_symbols, min(grid, 64),
+                                                       x.data_ptr() % 16)
+        assert torch.equal(model, got.cpu())
+
+
+def test_hist_one_kernel_per_call(cuda):
+    """A traced histogram call runs its one kernel on the card and
+    nothing else: no memset, no copy."""
+    x = torch.from_numpy(np.random.default_rng(1).integers(0, 256, 4 << 20, np.uint8)).to(cuda)
+    histogram_cuda.byte_histogram(x[3:])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            histogram_cuda.byte_histogram(x[3:])
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("hist_kernel" in name for name in names), names
 
 
 def test_stream_equals_native(cuda):

@@ -32,7 +32,8 @@ build_log = {}  # source stem -> nvcc's output (ptxas registers, shared memory, 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-# C signature of every kernel entry point; each returns cudaGetLastError().
+# C signature of every kernel entry point; each returns cudaGetLastError()
+# unless noted.
 _SIGNATURES = {
     "zt_walk": [_VP] * 4 + [_I] * 5 + [_VP],
     "zt_dp": [_VP] * 9 + [_I] * 5 + [_VP],
@@ -40,7 +41,8 @@ _SIGNATURES = {
     "zt_mk12": [_VP, _VP, _VP, _I, _I, _I, _VP],
     "zt_kraft": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "zt_matchlen": [_VP, _LL, _VP, _VP, _VP, _LL, _VP],
-    "zt_hist": [_VP, _LL, _VP, _I, _VP],
+    "zt_hist": [_VP, _LL, _LL, _LL, _VP, _I, _VP, _I, _VP],
+    "zt_hist_blocks_per_sm": [],  # returns the blocks an SM holds, or -(CUDA error)
 }
 
 
