@@ -26,10 +26,22 @@ device batch), then deflate, zlib at 64 KiB blocks, a preset
 dictionary, incompressible bytes and 2 MiB at 64 KiB blocks (33
 windows, three device batches). Then streams
 the gzip and the 33-window cases through ``Stream`` in 16 KiB chunks, and
-runs the CLI (``-c``, ``-cbench``, ``-quicktest``). Each compression must
+runs the CLI (``-c``, ``-cbench``, ``-quicktest``). Then the paths of many
+windows, devices and processes: every window of the zlib case planned
+alone (``DeviceWindowEngine.begin_window`` + ``emit_window``), the
+33-window case at ``windows_per_batch`` 2 and 5, the gzip case over a
+``devices`` list (every card torch sees, or ``cuda:0`` twice), the gzip
+case in windows mode across 2 spawned gloo ranks on ``cuda:0``
+(``parallel.multihost.run_windows_distributed``), corpus statistics of the
+4 MiB corpus (``parallel.sharded_corpus_stats``: suffix arrays, the byte
+histogram kernel, Adler partial sums) with the checksums against zlib, and
+``ops.emit_torch.write_tokens`` on one block of the gzip case's plan. Each
+compression must
 rebuild the recorded input (sha256), match the recorded output digest
 (what zultra_tpu writes on its native engine), decode with zlib, and
-launch all five path kernels, counted from 0 just before each run. Prints
+launch all five compression kernels, counted from 0 just before each run
+(the statistics phase the histogram kernel, ``write_tokens`` the chain
+kernel; the ranks of the distributed run report their own counts). Prints
 the card's name and power limit, one line per phase, a JSON line of
 kernel results and, last, {"ok": true, "device": {...}}. Exits non-zero
 on any failure, and before printing any result when no CUDA device is
@@ -45,6 +57,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import zlib
 from pathlib import Path
 
@@ -62,11 +75,12 @@ KERNELS = {
     "chain": ("zultra_tpu_torch/csrc/chain.cu", "zultra_tpu/ops/chain_pallas.py:41"),
     "mk12": ("zultra_tpu_torch/csrc/mk.cu", "zultra_tpu/ops/mk_pallas.py:62"),
     "kraft": ("zultra_tpu_torch/csrc/mk.cu", "zultra_tpu/ops/mk_pallas.py:153"),
+    "hist": ("zultra_tpu_torch/csrc/histogram.cu", "zultra_tpu/ops/histogram.py:31"),
 }
-# The kernels that no path of either package runs (tests and exports only).
+COMPRESS_KERNELS = ("walk", "dp", "chain", "mk12", "kraft")  # every compression's path
+# The kernel that no path of either package runs (tests and exports only).
 OFF_PATH_KERNELS = {
     "matchlen": ("zultra_tpu_torch/csrc/matchlen.cu", "zultra_tpu/ops/matchlen.py:34"),
-    "hist": ("zultra_tpu_torch/csrc/histogram.cu", "zultra_tpu/ops/histogram.py:31"),
 }
 
 
@@ -129,9 +143,9 @@ def check_output(name: str, case: dict, data: bytes, dictionary, out: bytes) -> 
         raise SystemExit(f"{name}: zlib does not decode the port's output to the input")
 
 
-def path_counts(name: str, counts: dict) -> dict:
-    """The five path kernels' launches of one run; raise if one is 0."""
-    got = {k: counts[k] for k in KERNELS}
+def path_counts(name: str, counts: dict, kernels=COMPRESS_KERNELS) -> dict:
+    """The path kernels' launches of one run; raise if one is 0."""
+    got = {k: counts[k] for k in kernels}
     for k, c in got.items():
         if c <= 0:
             raise SystemExit(f"{name}: the run launched no {k} kernel")
@@ -147,11 +161,13 @@ def main() -> int:
         return 2
     from zultra_tpu_torch import (
         FINALIZE,
+        DeviceWindowEngine,
         Stream,
         _build,
         chain_bench,
         cli,
         compress_device,
+        frame,
         matchlen_hist_bench,
         walk_bench,
     )
@@ -175,7 +191,11 @@ def main() -> int:
         mk_inputs,
         mk_lengths,
     )
+    from zultra_tpu_torch.ops import checksum
+    from zultra_tpu_torch.ops.emit_torch import write_tokens
     from zultra_tpu_torch.ops.matchfinder_torch import HALO, match_tables_device_stacked
+    from zultra_tpu_torch.parallel import multihost, sharded_corpus_stats
+    from zultra_tpu_torch.stream import clamp_block_size, memory_bound
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -262,16 +282,30 @@ def main() -> int:
 
     real_run_dp = block_torch.run_dp
     buckets = {}  # n_pad -> the planner's DP arguments of its first pass
+    real_core, real_emit = block_torch.plan_block_core, block_torch.emit_tokens
+    emitted = {}  # the first planner bucket's lane lengths, emission arguments and result
 
     def recording_run_dp(*args):
         buckets.setdefault(args[2].shape[1], args)
         return real_run_dp(*args)
 
+    def recording_core(window, mlens, moffs, length, greedy_tok=None):
+        emitted.setdefault("length", length.clone())
+        return real_core(window, mlens, moffs, length, greedy_tok)
+
+    def recording_emit(*args):
+        out = real_emit(*args)
+        emitted.setdefault("args", args)
+        emitted.setdefault("out", out)
+        return out
+
     block_torch.run_dp = recording_run_dp
+    block_torch.plan_block_core, block_torch.emit_tokens = recording_core, recording_emit
     try:
         compress_device(data, 2, device=dev)  # also the warm-up of the library and caches
     finally:
         block_torch.run_dp = real_run_dp
+        block_torch.plan_block_core, block_torch.emit_tokens = real_core, real_emit
     for n_pad, args in sorted(buckets.items()):
         dp_rows.append(dp_row(f"gzip bucket {n_pad}", (*dp_cuda.prep_lanes(*args), args[5]), 3))
     dp_rows.append(dp_row("64 KiB zero run", one_lane(np.zeros(1 << 16, np.uint8)), 3))
@@ -610,12 +644,153 @@ def main() -> int:
                   f"{', output equal to the deflate digest' if mode == '-c' else ''}; "
                   f"launches {got_counts}")
 
+
+    # -- many windows, devices and processes ---------------------------------
+    # Each phase runs with the counts set to 0 just before it and read just
+    # after; none catches its own failure.
+    path_launches = {k: counts[k] for k in COMPRESS_KERNELS}  # the gzip one-shot run's
+
+    def per_window(case, d, dictionary):
+        """Every window planned alone through the engine's per-window
+        contract, emitted in stream order, framed as compress_device."""
+        engine = DeviceWindowEngine(dev)
+        mbs_c = clamp_block_size(case["block_size"])
+        flags = case["flags"]
+        dict_b = dictionary or b""
+        corpus_c = np.frombuffer(dict_b + d, np.uint8)
+        base = len(dict_b)
+        out = bytearray(frame.encode_header(flags, dictionary))
+        buf = bytearray(memory_bound(mbs_c, flags, mbs_c))
+        bits_data = bits_count = 0
+        spans_c = [(base + lo, base + min(lo + mbs_c, len(d))) for lo in range(0, len(d), mbs_c)]
+        for i, (lo, hi) in enumerate(spans_c):
+            prev = min(32768, lo)
+            handle = engine.begin_window(corpus_c[lo - prev : hi], prev, hi - lo)
+            n_out, bits_data, bits_count = engine.emit_window(
+                handle, i + 1 == len(spans_c), buf, bits_data, bits_count)
+            engine.free_window(handle)
+            out += buf[:n_out]
+        out += frame.encode_footer(flags, frame.update_checksum(
+            frame.init_checksum(flags), corpus_c[base:], flags), len(d))
+        return bytes(out)
+
+    case = by_name["zlib"]
+    d, dictionary = inputs["zlib"]
+    _, secs, got_counts = timed_run("per-window zlib", case, d, dictionary,
+                                    lambda: per_window(case, d, dictionary))
+    n_windows = -(-len(d) // clamp_block_size(case["block_size"]))
+    print(f"per-window zlib: {n_windows} windows of {case['block_size']} B each planned alone "
+          f"(begin_window + emit_window), equal to the golden digest, decodes; "
+          f"{len(d) / 1e6 / secs:.3f} MB/s ({secs:.2f} s) against one-shot "
+          f"{len(d) / 1e6 / first['zlib'][0]:.3f} MB/s ({first['zlib'][0]:.2f} s), ratio "
+          f"{first['zlib'][0] / secs:.3f}, on {smi}; launches {got_counts}")
+
+    case = by_name["stream"]
+    d, _ = inputs["stream"]
+    for wpb in (2, 5):
+        _, secs, got_counts = timed_run(
+            f"windows_per_batch {wpb}", case, d, None,
+            lambda: compress_device(d, case["flags"], case["block_size"], windows_per_batch=wpb,
+                                    device=dev))
+        print(f"windows_per_batch {wpb}: stream case ({len(d)} B, 33 windows) equal to the golden "
+              f"digest, decodes; {secs:.2f} s ({len(d) / 1e6 / secs:.3f} MB/s; 16 a batch: "
+              f"{first['stream'][0]:.2f} s) on {smi}; launches {got_counts}")
+
+    case = by_name["gzip"]
+    d, _ = inputs["gzip"]
+    n_cards = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(n_cards)] if n_cards > 1 else ["cuda:0", "cuda:0"]
+    _, secs, got_counts = timed_run(
+        "devices", case, d, None,
+        lambda: compress_device(d, case["flags"], case["block_size"], devices=devices))
+    print(f"devices {devices}: gzip case equal to the golden digest, decodes; {secs:.2f} s "
+          f"({len(d) / 1e6 / secs:.3f} MB/s; one device {first['gzip'][0]:.2f} s) on {smi}; "
+          f"launches {got_counts}")
+
+    t0 = time.perf_counter()
+    out, rank_stats = multihost.run_windows_distributed(
+        d, case["flags"], case["block_size"], world_size=2, device="cuda:0", timeout=600)
+    secs = time.perf_counter() - t0
+    check_output("distributed gzip", case, d, None, out)
+    got_counts = path_counts("distributed gzip", {
+        k: sum(st["launches"][k] for st in rank_stats) for k in KERNELS})
+    print(f"distributed gzip: 2 gloo ranks on cuda:0 (spawned), rank 0's stream equal to the "
+          f"golden digest, decodes; {secs:.2f} s with the processes' start (one process "
+          f"one-shot {first['gzip'][0]:.2f} s); plan s by rank "
+          f"{[round(st['plan_s'], 3) for st in rank_stats]}, allgather s "
+          f"{[round(st['allgather_s'], 3) for st in rank_stats]}, stitch "
+          f"{rank_stats[0]['stitch_s']:.3f} s, on {smi}; launches (both ranks) {got_counts}")
+
+    # Corpus statistics of the 4 MiB corpus at 64 KiB windows (64 windows,
+    # no padding) and the checksums, against torch.bincount and zlib.
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = sharded_corpus_stats(data, devices=[dev])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    path_launches["hist"] = path_counts("corpus statistics", launch_counts(), ("hist",))["hist"]
+    windows = corpus_dev.view(stats["n_windows"], -1)
+    if not torch.equal(torch.from_numpy(stats["corpus_histogram"]),
+                       torch.bincount(corpus_dev, minlength=256).cpu()):
+        raise SystemExit("corpus statistics: the histogram differs from torch.bincount")
+    rank_of_sa = torch.gather(stats["ranks"], 1, stats["suffix_arrays"].to(torch.int64))
+    if not torch.equal(rank_of_sa, torch.arange(windows.shape[1], device=dev,
+                                                dtype=torch.int32).expand_as(rank_of_sa)):
+        raise SystemExit("corpus statistics: the suffix arrays and final ranks disagree")
+    adler = 1
+    for s1, s2 in zip(stats["adler_s1"], stats["adler_s2"]):
+        w_len = windows.shape[1]
+        adler = checksum.adler32_combine(adler, ((int(s2 + w_len) % 65521) << 16)
+                                         | (int(s1 + 1) % 65521), w_len)
+    half = len(data) // 2 + 7
+    checks = {
+        "window partials folded": adler == zlib.adler32(data),
+        "adler32 on the card": checksum.adler32(corpus, device=dev) == zlib.adler32(data),
+        "adler32_combine": checksum.adler32_combine(zlib.adler32(data[:half]), zlib.adler32(
+            data[half:]), len(data) - half) == zlib.adler32(data),
+        "crc32_combine": checksum.crc32_combine(zlib.crc32(data[:half]), zlib.crc32(
+            data[half:]), len(data) - half) == zlib.crc32(data),
+        "crc32_sharded": checksum.crc32_sharded(
+            [data[i : i + (1 << 20)] for i in range(0, len(data), 1 << 20)]) == zlib.crc32(data),
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"checksums: not equal to zlib: {checks}")
+    print(f"corpus statistics: {stats['n_windows']} windows of 64 KiB, histogram equal to "
+          f"torch.bincount, suffix arrays consistent with their ranks, {secs:.3f} s on {smi}; "
+          f"hist launches {path_launches['hist']}; checksums equal to zlib: {sorted(checks)}")
+
+    # write_tokens on the first block of the gzip case's first planner
+    # bucket: its chosen parse and codes, against the planner's own words.
+    args, (words, total_bits), lengths = emitted["args"], emitted["out"], emitted["length"]
+    L = int(lengths[0])
+    best = torch.stack([args[1][0, :L], args[2][0, :L]], dim=1).cpu().numpy()
+    window = args[0][0, :L].cpu().numpy()
+    lit = types.SimpleNamespace(code_word=args[3][0].tolist(), code_length=args[4][0].tolist())
+    off = types.SimpleNamespace(code_word=args[5][0].tolist(), code_length=args[6][0].tolist())
+    want_bits = int(total_bits[0])
+    want = words[0].cpu().numpy().astype(np.uint32).view(np.uint8)[: (want_bits + 7) // 8].copy()
+    if want_bits & 7:
+        want[-1] &= (1 << (want_bits & 7)) - 1
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = write_tokens(window, best, 0, L, lit, off, device=dev)
+    secs = time.perf_counter() - t0
+    got_counts = path_counts("write_tokens", launch_counts(), ("chain",))
+    plain = write_tokens(window, best, 0, L, lit, off, device="cpu")
+    if got[1] != want_bits or got[0] != want.tobytes() or got != plain:
+        raise SystemExit(f"write_tokens: {got[1]} bits against the plan's {want_bits}, or bytes "
+                         "not equal to the plan's words or to the plain form")
+    print(f"write_tokens: one block of {L} B of the gzip plan, {got[1]} bits equal to the "
+          f"plan's total_bits, bytes equal to its words and to the plain form (cpu); "
+          f"{secs * 1e3:.2f} ms; launches {got_counts}")
+
     kernels = []
     for name, (source, replaces) in {**KERNELS, **OFF_PATH_KERNELS}.items():
         r = results[name]
         extra = {} if name in KERNELS else {"path": "no path runs it"}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": counts[name], "max_abs_err": r["max_abs_err"],
+                        "launches": path_launches.get(name, 0), "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": "bytes", "library_ms": r.get("library_ms"), **extra,
                         **{k: v for k, v in r.items() if k not in (

@@ -366,3 +366,106 @@ def test_stream_equals_native(cuda):
         assert out == zt.compress(data, 1, 32768)
     finally:
         engine._active_engine = None
+
+
+def test_begin_window_equals_plain(cuda):
+    """A window planned alone on the card: the same blocks and plans as on
+    the CPU (plain forms), and a per-window stream equal to the native
+    engine's."""
+    from zultra_tpu_torch import DeviceWindowEngine, begin_window_device
+
+    data = _corpus(3 * 32768 - 700)
+    got = begin_window_device(data[: 32768 + 20000], 32768, 20000, device=cuda)
+    want = begin_window_device(data[: 32768 + 20000], 32768, 20000, device="cpu")
+    assert got.block_spans == want.block_spans
+    for p, q in zip(got.plans, want.plans):
+        for key in q:
+            np.testing.assert_array_equal(np.asarray(p[key]), np.asarray(q[key]), err_msg=key)
+    engine_c = DeviceWindowEngine(cuda)
+    table = engine_c.find_all_matches(data[:40000], 8000, 40000)
+    from zultra_tpu.matchfinder import find_all_matches
+
+    np.testing.assert_array_equal(table, find_all_matches(data[:40000].copy(), 8000, 40000))
+
+
+def test_devices_and_windows_per_batch_equal_native(cuda):
+    from zultra_tpu_torch import compress_device
+
+    engine.set_engine("native")
+    try:
+        data = _corpus(5 * 32768 + 999).tobytes()
+        want = zt.compress(data, 2, 32768)
+        n = torch.cuda.device_count()
+        devices = [f"cuda:{i}" for i in range(n)] if n > 1 else ["cuda:0", "cuda:0"]
+        assert compress_device(data, 2, 32768, windows_per_batch=1, devices=devices) == want
+        assert compress_device(data, 2, 32768, windows_per_batch=2, device=cuda) == want
+    finally:
+        engine._active_engine = None
+
+
+def test_windows_distributed_gloo_on_one_card(cuda, tmp_path):
+    """Two gloo ranks spawned on cuda:0: rank 0's stream equals the native
+    engine's, and both ranks launched the compression kernels."""
+    from zultra_tpu_torch.parallel import multihost
+
+    engine.set_engine("native")
+    try:
+        data = _corpus(3 * 32768 + 4321).tobytes()
+        out, stats = multihost.run_windows_distributed(
+            data, 1, 32768, world_size=2, device="cuda:0",
+            init_method=f"file://{tmp_path / 'rendezvous'}", timeout=300)
+        assert out == zt.compress(data, 1, 32768)
+        for st in stats:
+            assert all(st["launches"][k] > 0 for k in ("walk", "dp", "chain", "mk12", "kraft"))
+    finally:
+        engine._active_engine = None
+
+
+def test_sharded_corpus_stats_on_the_card(cuda):
+    """The statistics on the card equal the CPU's, their histogram comes
+    from the histogram kernel, and the Adler partials fold to zlib's."""
+    from zultra_tpu_torch.ops import checksum
+    from zultra_tpu_torch.parallel import sharded_corpus_stats
+
+    data = _corpus(5 * 65536 + 77).tobytes()
+    histogram_cuda.launches = 0
+    got = sharded_corpus_stats(data, devices=[cuda, cuda])
+    assert histogram_cuda.launches == 2
+    want = sharded_corpus_stats(data, devices=["cpu", "cpu"])
+    assert got["n_windows"] == want["n_windows"] == 6
+    for key in ("suffix_arrays", "ranks"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    for key in ("corpus_histogram", "adler_s1", "adler_s2"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert checksum.adler32(data, device=cuda) == zlib.adler32(data)
+
+
+def test_write_tokens_on_the_card(cuda):
+    """Token emission on the card (chain kernel token starts) equals its
+    CPU form on a parse from the native optimal parser."""
+    from zultra_tpu import native
+    from zultra_tpu.constants import (
+        NLITERALSYMS,
+        NOFFSETSYMS,
+        static_literal_code_lengths,
+        static_offset_code_lengths,
+    )
+    from zultra_tpu.huffman import HuffmanEncoder
+    from zultra_tpu_torch.ops.emit_torch import write_tokens
+
+    data = np.ascontiguousarray(_corpus(60000))
+    table = native.build_match_table(data, 5000)
+    lit = HuffmanEncoder(NLITERALSYMS, 15)
+    off = HuffmanEncoder(NOFFSETSYMS, 15)
+    lit.code_length[:NLITERALSYMS] = [int(x) for x in static_literal_code_lengths()]
+    off.code_length[:NOFFSETSYMS] = [int(x) for x in static_offset_code_lengths()]
+    lit.build_static_codewords()
+    off.build_static_codewords()
+    slit = np.zeros(NLITERALSYMS, np.int32)
+    slit[: len(static_literal_code_lengths())] = static_literal_code_lengths()
+    best = native.optimize_matches(slit, np.asarray(static_offset_code_lengths(), np.int32),
+                                   data, table, 5000, len(data)).astype(np.int32)
+    chain_cuda.launches = 0
+    got = write_tokens(data, best, 5000, len(data), lit, off, device=cuda)
+    assert chain_cuda.launches == 1
+    assert got == write_tokens(data, best, 5000, len(data), lit, off, device="cpu")

@@ -46,6 +46,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys, zlib\n"
         "import zultra_tpu_torch as ztt\n"
+        "import zultra_tpu_torch.parallel.multihost, zultra_tpu_torch.profiling\n"
+        "import zultra_tpu_torch.ops.emit_torch, zultra_tpu_torch.matchfinder\n"
         "data = bytes(range(256)) * 40\n"
         "out = ztt.compress(data, 1, device='cpu')\n"
         "assert zlib.decompress(out) == data\n"
@@ -84,7 +86,10 @@ def test_port_sources_import_no_zultra_tpu():
     assert len(files) > 10
     names = {p.relative_to(REPO).as_posix() for p in files}
     assert {"zultra_tpu_torch/stream.py", "zultra_tpu_torch/compat.py",
-            "zultra_tpu_torch/cli.py"} <= names
+            "zultra_tpu_torch/cli.py", "zultra_tpu_torch/parallel/__init__.py",
+            "zultra_tpu_torch/parallel/multihost.py", "zultra_tpu_torch/profiling.py",
+            "zultra_tpu_torch/ops/checksum.py", "zultra_tpu_torch/ops/emit_torch.py",
+            "zultra_tpu_torch/matchfinder.py", "zultra_tpu_torch/suffix.py"} <= names
     assert not bad, bad
 
 

@@ -9,7 +9,10 @@ shot (``compress``) or through the zlib-style push API (``Stream``,
 run hand-written CUDA kernels (``csrc/``, built with nvcc at first use)
 on CUDA tensors and their plain PyTorch versions on CPU tensors; the form
 follows the tensor's device, and every entry point takes ``device``
-("cuda" unless the caller asks for the CPU).
+("cuda" unless the caller asks for the CPU) or a list of ``devices``.
+``zultra_tpu_torch.parallel`` runs many devices and ``torch.distributed``
+processes: corpus statistics, independent members, and one stream
+planned across processes (``parallel.multihost``).
 """
 
 from .constants import (
@@ -17,7 +20,16 @@ from .constants import (
     FLAG_GZIP_FRAMING,
     FLAG_ZLIB_FRAMING,
 )
-from .device_pipeline import DeviceWindowEngine, compress_device
+from .device_pipeline import DeviceWindowEngine, begin_window_device, compress_device
+from .ops import (
+    adler32,
+    adler32_combine,
+    byte_histogram,
+    crc32_combine,
+    plcp,
+    suffix_array,
+    token_histogram,
+)
 from .stream import CONTINUE, FINALIZE, Stream, StreamError, compress, memory_bound
 
 __version__ = "0.1.0"
@@ -34,5 +46,13 @@ __all__ = [
     "compress_device",
     "memory_bound",
     "DeviceWindowEngine",
+    "begin_window_device",
+    "suffix_array",
+    "plcp",
+    "byte_histogram",
+    "token_histogram",
+    "adler32",
+    "adler32_combine",
+    "crc32_combine",
     "__version__",
 ]

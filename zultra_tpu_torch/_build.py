@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -26,6 +27,7 @@ NVCC_FLAGS = [
 ]
 
 _lib = None
+_lib_lock = threading.Lock()  # threads planning on several devices build once
 build_seconds = 0.0  # wall time of the build this process ran (0 if cached)
 build_log = {}  # source stem -> nvcc's output (ptxas registers, shared memory, spills)
 
@@ -108,13 +110,14 @@ def build() -> Path:
 def lib():
     """The loaded kernel library (built on first use)."""
     global _lib
-    if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = handle
+    with _lib_lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
     return _lib
 
 

@@ -1,11 +1,12 @@
-"""One-shot compression on one CUDA device: match tables -> block split
+"""One-shot compression on CUDA devices: match tables -> block split
 -> block plans run on the device for a batch of windows; the host
 writes the framing, the table bits and the ordered splice of the packed
 token words.
 
-Port of zultra_tpu/device_pipeline.py for one device (no mesh). The
-device half (``_begin_windows_batched``, ``compress_device``,
-``DeviceWindowEngine`` with its queued stream batch) is written in
+Port of zultra_tpu/device_pipeline.py. The device half
+(``_begin_windows_batched``, ``begin_window_device``, ``compress_device``
+with ``windows_per_batch`` and ``devices``, ``DeviceWindowEngine`` with
+its queued stream batch and the per-window contract) is written in
 PyTorch. The host half
 (``put_packed_bits``, ``_encoder_from_lengths``,
 ``write_block_from_plan``, ``_WindowPlan`` and
@@ -16,6 +17,8 @@ in both packages.
 """
 
 from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -31,11 +34,11 @@ from .constants import (
 )
 from .huffman import HuffmanEncoder, write_var_lengths
 from .ops.block_torch import plan_blocks_device_multi
-from .ops.matchfinder_torch import HALO, match_tables_device_stacked
+from .ops.matchfinder_torch import HALO, match_table, match_tables_device_stacked
 from .ops.split_torch import input_cap, split_batch, split_bucket, trig_cap_for
 from .stream import StreamError, clamp_block_size, memory_bound
 
-WINDOWS_PER_BATCH = 16  # windows planned together in one device batch
+WINDOWS_PER_BATCH = 16  # windows planned together in one device batch (per device)
 
 
 # ---------------------------------------------------------------------------
@@ -233,12 +236,53 @@ def begin_windows_batched(corpus: np.ndarray, spans, mbs: int, device) -> list:
     return handles
 
 
+def begin_window_device(window: np.ndarray, prev: int, in_size: int, n_threads: int = 0,
+                        device="cuda") -> _WindowPlan:
+    """Plan one window alone: ``window`` holds ``prev`` history bytes,
+    then ``in_size`` input bytes. The counterpart of
+    zultra_tpu.device_pipeline.begin_window_device (:107), run as a
+    one-window batch of ``begin_windows_batched`` with the window itself
+    as the corpus: the same split points and plans, since a window's
+    lane layout changes neither (tests/test_torch_window.py). The
+    handle's block spans are in ``window``'s coordinates. ``n_threads``
+    is accepted for the engine contract."""
+    window = np.asarray(window, dtype=np.uint8)
+    [handle] = begin_windows_batched(window[: prev + in_size], [(prev, prev + in_size)],
+                                     in_size, torch.device(device))
+    cut = prev - handle.prev  # history beyond HISTORY_SIZE, which no match reaches
+    handle.block_spans = [(s + cut, e + cut) for s, e in handle.block_spans]
+    handle.window, handle.prev = window, prev
+    return handle
+
+
+def begin_windows_on(device: torch.device, corpus: np.ndarray, spans, mbs: int) -> list:
+    """begin_windows_batched with ``device`` current, so that the kernels
+    launch on that card's stream from whichever thread calls."""
+    if device.type != "cuda":
+        return begin_windows_batched(corpus, spans, mbs, device)
+    with torch.cuda.device(device):
+        return begin_windows_batched(corpus, spans, mbs, device)
+
+
 def compress_device(data: bytes, flags: int = 0, max_block_size: int = 0,
-                    dictionary: bytes | None = None, device="cuda") -> bytes:
+                    dictionary: bytes | None = None, windows_per_batch: int = WINDOWS_PER_BATCH,
+                    devices=None, device="cuda") -> bytes:
     """One-shot compression with windows batched through the device
     begin-phase; byte-identical to zultra_tpu's streaming core at the
-    same block size (reference one-shot API, src/libzultra.c:601-619)."""
-    device = torch.device(device)
+    same block size (reference one-shot API, src/libzultra.c:601-619).
+
+    ``windows_per_batch`` windows are planned in one device batch
+    (zultra_tpu/device_pipeline.py:354). With ``devices``, a list of
+    devices (the counterpart of ``mesh=``), a batch holds
+    ``windows_per_batch * len(devices)`` windows, cut into
+    ``len(devices)`` contiguous groups that are planned each on its own
+    device from a host thread of its own, so that the launches on
+    distinct cards overlap; the plans are emitted in stream order. A
+    device may appear twice (two threads share its stream). ``device``
+    is the one device when ``devices`` is None."""
+    devs = [torch.device(d) for d in (devices if devices is not None else [device])]
+    if windows_per_batch < 1 or not devs:
+        raise ValueError("compress_device: need windows_per_batch >= 1 and at least one device")
     mbs = clamp_block_size(max_block_size)
     data_b = bytes(data)
     if not data_b:
@@ -259,13 +303,27 @@ def compress_device(data: bytes, flags: int = 0, max_block_size: int = 0,
     checksum = frame.update_checksum(frame.init_checksum(flags), corpus[base:], flags)
     buf = bytearray(memory_bound(mbs, flags, mbs))
     bits_data, bits_count = 0, 0
-    for g in range(0, len(spans), WINDOWS_PER_BATCH):
-        group = spans[g : g + WINDOWS_PER_BATCH]
-        for i, handle in enumerate(begin_windows_batched(corpus, group, mbs, device)):
-            is_last = g + i + 1 == len(spans)
-            n, bits_data, bits_count = emit_window_from_plan(
-                handle, is_last, buf, bits_data, bits_count)
-            out += buf[:n]
+    per_batch = windows_per_batch * len(devs)
+    pool = ThreadPoolExecutor(len(devs)) if len(devs) > 1 else None
+    try:
+        for g in range(0, len(spans), per_batch):
+            batch = spans[g : g + per_batch]
+            per = -(-len(batch) // len(devs))
+            groups = [(d, batch[i * per : (i + 1) * per]) for i, d in enumerate(devs)
+                      if batch[i * per : (i + 1) * per]]
+            if pool is None:
+                planned = [begin_windows_on(d, corpus, grp, mbs) for d, grp in groups]
+            else:
+                planned = list(pool.map(lambda dg: begin_windows_on(dg[0], corpus, dg[1], mbs), groups))
+            handles = [h for hs in planned for h in hs]
+            for i, handle in enumerate(handles):
+                is_last = g + i + 1 == len(spans)
+                n, bits_data, bits_count = emit_window_from_plan(
+                    handle, is_last, buf, bits_data, bits_count)
+                out += buf[:n]
+    finally:
+        if pool is not None:
+            pool.shutdown()
     out += frame.encode_footer(flags, checksum, len(data_b))
     return bytes(out)
 
@@ -306,8 +364,10 @@ class DeviceWindowEngine:
     card (zultra_tpu queues only on a TPU, to spare XLA compiles the port
     does not have). ``emit_window`` writes a planned window; with
     ``queue_window`` it is the engine contract that zultra_tpu's ``Stream``
-    also accepts. A caller that wants one window planned alone calls
-    ``queue_window(...).result()``. (zultra_tpu/device_pipeline.py:434-534)"""
+    also accepts (it takes ``queue_window`` over ``begin_window``). The
+    per-window contract (``begin_window``, ``emit_window``,
+    ``free_window``, ``find_all_matches``) plans one window alone, for
+    direct users and cross-checks. (zultra_tpu/device_pipeline.py:434-534)"""
 
     name = "torchdev"
     pipeline_depth = WINDOWS_PER_BATCH  # windows per device batch through the stream
@@ -366,3 +426,17 @@ class DeviceWindowEngine:
     def emit_window(self, handle: _WindowPlan, window_is_last: bool, out: bytearray,
                     bits_data: int, bits_count: int):
         return emit_window_from_plan(handle, window_is_last, out, bits_data, bits_count)
+
+    # -- per-window contract (direct users and cross-checks) ----------------
+
+    def begin_window(self, window: np.ndarray, prev: int, in_size: int,
+                     n_threads: int = 0) -> _WindowPlan:
+        return begin_window_device(window, prev, in_size, n_threads, self.device)
+
+    def free_window(self, handle: _WindowPlan) -> None:
+        pass
+
+    def find_all_matches(self, window: np.ndarray, start: int, end: int) -> np.ndarray:
+        """The (end, 8, 2) int32 match table of ``window`` (zultra_tpu's
+        DeviceWindowEngine.find_all_matches, :474)."""
+        return match_table(window, start, end, self.device)

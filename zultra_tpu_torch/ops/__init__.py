@@ -1,7 +1,28 @@
 """Device stages of the port: symbol maps, suffix arrays, match tables,
-the Huffman bundle, the splitter, the block planner, and the wrappers of
-the walk, DP, chain, MK, Kraft, matchlen and byte-histogram kernels. Nothing here imports at
-package load; each module is imported where it is used."""
+the Huffman bundle, the splitter, the block planner, token emission,
+checksums, and the wrappers of the walk, DP, chain, MK, Kraft, matchlen
+and byte-histogram kernels. No kernel is built at package load (the
+first CUDA launch builds them all).
+
+The exports are the counterparts of zultra_tpu/ops/__init__.py:17-30
+(``optimize_matches_jax``, the JAX scan DP kept for cross-checks, has
+none: ROADMAP A8)."""
+
+from .checksum import adler32, adler32_combine, crc32_combine
+from .histogram_cuda import byte_histogram, token_histogram
+from .suffix_torch import plcp, suffix_array
+
+__all__ = [
+    "suffix_array",
+    "plcp",
+    "byte_histogram",
+    "token_histogram",
+    "adler32",
+    "adler32_combine",
+    "crc32_combine",
+    "launch_counts",
+    "reset_launch_counts",
+]
 
 # kernel name -> (wrapper module, its launch counter)
 _COUNTERS = {

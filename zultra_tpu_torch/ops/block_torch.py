@@ -5,7 +5,8 @@ match->literal post-optimization, the Zopfli RLE A/B test, the CL-mask
 search, and token emission into packed words.
 
 Port of zultra_tpu.ops.block_jax (``_plan_block_core``,
-``_emit_tokens``, ``plan_blocks_device_multi`` and their helpers; no
+``_emit_tokens``, ``plan_blocks_device_multi``, the per-window forms
+``plan_blocks_device`` and ``plan_blocks``, and their helpers; no
 mesh). Reference semantics: zultra src/blockdeflate.c:827-997 and the
 stream-level cost choice src/libzultra.c:317-324. Lanes are block-local
 (position 0 = block start); bytes past a lane's length are the window's
@@ -337,3 +338,25 @@ def plan_blocks_device_multi(win_stack, lens_stack, offs_stack, lanes, tok_stack
                               length, gtok)
         collect_plans(out, idxs, plans)
     return plans
+
+
+def plan_blocks_device(win, lens, offs, block_spans) -> list:
+    """Plans for the blocks ``block_spans`` [(s, e), ...] of one window
+    whose bytes ``win`` (n,) uint8 and tables ``lens``/``offs`` (n, 8)
+    lie on the device (block_jax.plan_blocks_device, :610): its blocks
+    as the lanes of a one-window ``plan_blocks_device_multi``."""
+    lanes = [(0, s, e - s) for s, e in block_spans]
+    return plan_blocks_device_multi(win[None], lens.to(I32)[None], offs.to(I32)[None], lanes)
+
+
+def plan_blocks(window, match_table, block_spans, device="cuda") -> list:
+    """Plans for the blocks of one window from its host bytes and host
+    match table (n, 8, 2) (block_jax.plan_blocks, :754): both go to
+    ``device`` once, then ``plan_blocks_device``."""
+    dev = torch.device(device)
+    mt = np.asarray(match_table, dtype=np.int32)
+    n = min(len(window), mt.shape[0])
+    win = torch.from_numpy(np.array(window[:n], dtype=np.uint8)).to(dev)
+    lens = torch.from_numpy(np.ascontiguousarray(mt[:n, :, 0])).to(dev)
+    offs = torch.from_numpy(np.ascontiguousarray(mt[:n, :, 1])).to(dev)
+    return plan_blocks_device(win, lens, offs, block_spans)

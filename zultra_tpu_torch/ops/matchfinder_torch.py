@@ -1,8 +1,11 @@
 """Match tables for a batch of windows: segments -> suffix array + LCP
--> the lazy-walk kernel -> (W, HALO + mbs, 8) lengths and offsets.
+-> the lazy-walk kernel -> (W, HALO + mbs, 8) lengths and offsets; and
+the per-window tables (``match_table_device``, ``match_table``).
 
 Port of the local (no mesh) path of
-zultra_tpu.ops.matchfinder_jax.match_tables_device_stacked. Windows are
+zultra_tpu.ops.matchfinder_jax.match_tables_device_stacked, and of its
+per-window forms ``match_table_device`` (:556) and ``match_table_jax``
+(:734). Windows are
 cut into segments [32 KB history halo | core | 258-byte tail], padded
 with unique sentinels (>= 256). The cut is exact for any core size: a
 reported row (len, off) with off <= 32768 depends only on candidates in
@@ -31,6 +34,7 @@ from ..constants import (
     NMATCHES_PER_OFFSET,
 )
 
+from ..matchfinder import find_all_matches
 from .suffix_torch import adjacent_lcp, doubling_rounds
 from .walk_cuda import walk_segments
 
@@ -101,3 +105,31 @@ def match_tables_device_stacked(corpus: np.ndarray, spans, mbs: int, device):
     rows = torch.where(live, rows, 0)
     rows = torch.cat([rows.new_zeros((W, HALO, NMATCHES_PER_OFFSET)), rows], dim=1)
     return rows >> 16, rows & 0xFFFF
+
+
+def match_table_device(window: np.ndarray, start: int, end: int, device="cuda"):
+    """One window's match table on ``device``: (lens, offs), each (end, 8)
+    int32, rows [0, start) zero. ``window[:start]`` is history (at most
+    its last HALO bytes are used, as in the JAX form), ``window[start:end]``
+    the input. A one-window batch of ``match_tables_device_stacked``."""
+    window = np.asarray(window, dtype=np.uint8)
+    if not 0 <= start < end <= window.shape[0]:
+        raise ValueError(f"match_table_device: need 0 <= start < end <= {window.shape[0]}, "
+                         f"got {start}, {end}")
+    lens, offs = match_tables_device_stacked(window[:end], [(start, end)], end - start,
+                                             torch.device(device))
+    head = lens.new_zeros((start, NMATCHES_PER_OFFSET))
+    return torch.cat([head, lens[0, HALO:]]), torch.cat([head, offs[0, HALO:]])
+
+
+def match_table(window: np.ndarray, start: int, end: int, device="cuda") -> np.ndarray:
+    """One window's match table on the host: (end, 8, 2) int32 of
+    (length, offset), equal to ``matchfinder.find_all_matches``. With
+    more history than a match can reach (start > HALO, which the
+    streaming core never makes) the host walk runs it, as the JAX form
+    does (matchfinder_jax._host_walk)."""
+    window = np.asarray(window, dtype=np.uint8)
+    if start > HALO:
+        return find_all_matches(window[:end].copy(), start, end)
+    lens, offs = match_table_device(window, start, end, device)
+    return torch.stack([lens, offs], dim=2).cpu().numpy().astype(np.int32)

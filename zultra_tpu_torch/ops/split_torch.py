@@ -10,7 +10,8 @@ histograms, and each level evaluates the MK costs of its drift-triggered
 candidates in one batched ``entropy_torch.dynamic_cost`` call. With
 ``trig_cap`` > 0 only the first ``trig_cap`` triggers of a level are
 evaluated and a lane with more sets ``ovf``; the caller then reruns
-with ``trig_cap=0``, which is exact.
+with ``trig_cap=0``, which is exact. ``block_split`` is the per-window
+form over a host match table (split_jax.block_split_jax, :459).
 
 Out-of-range writes that the JAX package drops go to a dump column that
 is cut off afterwards; out-of-range reads are clipped as JAX clips them.
@@ -18,6 +19,7 @@ is cut off afterwards; out-of-range reads are clipped as JAX clips them.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..constants import (
@@ -305,3 +307,29 @@ def split_batch(win_p, rl, ro, prev: int, n_real, in_cap: int, trig_cap: int = 0
         n_ranges = n_ranges + n_found
 
     return torch.sort(splits, dim=1)[0], n_splits, tok_marks, ovf
+
+
+def block_split(window, table, prev: int, in_size: int, device="cuda") -> list:
+    """Block end offsets of one window from its host match table
+    (``table`` (n, 8, 2), n >= prev + in_size): ascending, the last
+    ``prev + in_size``. A one-lane ``split_batch`` with the same overflow
+    retry as split_jax.block_split_jax (:459-492)."""
+    dev = torch.device(device)
+    n = prev + in_size
+    n_pad = split_bucket(n)
+    mt = np.asarray(table, dtype=np.int32)
+    win_p = np.zeros((1, n_pad), np.uint8)
+    win_p[0, :n] = np.asarray(window, dtype=np.uint8)[:n]
+    rows = np.zeros((2, 1, n_pad), np.int32)
+    rows[:, 0, :n] = mt[:n, 0, :].T
+    win_t = torch.from_numpy(win_p).to(dev)
+    rl, ro = torch.from_numpy(rows).to(dev)
+    n_real = torch.tensor([n], dtype=I32, device=dev)
+    cap = input_cap(in_size)
+    splits, n_splits, _, ovf = split_batch(win_t, rl, ro, prev, n_real, cap, trig_cap_for(cap))
+    if bool(ovf[0]):
+        # Exact retry: more triggers than the compact budget.
+        splits, n_splits, _, _ = split_batch(win_t, rl, ro, prev, n_real, cap, 0)
+    out = [int(x) for x in splits[0, : int(n_splits[0])].cpu()]
+    out.append(n)
+    return out

@@ -5,13 +5,23 @@ rank_{i+k}), re-rank). Each round is one stable sort of packed int64
 keys over every segment of the batch at once, a compare, a cumsum and a
 scatter back to position order. Port of zultra_tpu.ops.suffix_jax's
 ``_num_levels`` and ``_doubling_rounds``; the suffix array is unique, so
-both produce the same permutation.
+both produce the same permutation. ``suffix_array`` and ``plcp`` port
+``suffix_array_jax`` and ``plcp_jax`` (one byte string, numpy out).
+
+Ties. JAX sorts (rank, rank2, idx) with ``lax.sort``; here one stable
+sort of the packed key breaks ties by position. Only the order among
+equal keys could differ, and neither output depends on it: the new
+ranks are dense ranks of the keys, and after ceil(log2 n) rounds every
+suffix has a rank of its own (rank2 = -1 past the end makes a suffix
+that is a prefix of another the smaller), so the suffix array is the
+unique one, for bytes with zero padding as for unique sentinels.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -88,3 +98,26 @@ def adjacent_lcp(sa: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
         rb = torch.gather(ranks[level], 1, torch.clamp(ja, 0, n - 1).to(torch.int64))
         lcp = torch.where(ok & (ra == rb), lcp + width, lcp)
     return lcp
+
+
+def suffix_array(data, device="cuda") -> np.ndarray:
+    """Suffix array of a byte array (suffix_array_jax): (n,) int32."""
+    arr = np.asarray(data, dtype=np.uint8)
+    n = int(arr.shape[0])
+    if n < 2:
+        return np.zeros(n, dtype=np.int32)
+    sa, _ = doubling_rounds(torch.from_numpy(arr.astype(np.int32)).to(device)[None])
+    return sa[0].cpu().numpy()
+
+
+def plcp(data, device="cuda") -> np.ndarray:
+    """Permuted LCP (plcp_jax): plcp[i] = lcp of suffix i with its
+    predecessor in suffix order, 0 for the first suffix. (n,) int32."""
+    arr = np.asarray(data, dtype=np.uint8)
+    n = int(arr.shape[0])
+    if n < 2:
+        return np.zeros(n, dtype=np.int32)
+    sa, ranks = doubling_rounds(torch.from_numpy(arr.astype(np.int32)).to(device)[None])
+    out = torch.zeros_like(sa)
+    out.scatter_(1, sa[:, 1:].to(torch.int64), adjacent_lcp(sa, ranks))
+    return out[0].cpu().numpy()
