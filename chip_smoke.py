@@ -4,7 +4,7 @@
 
 Builds the CUDA kernels from zultra_tpu_torch/csrc/ (one nvcc per source,
 sm_90a), holds each kernel against its plain PyTorch version: the five
-of the compression path (walk, DP, chain, MK, Kraft) at the shapes the
+Pallas counterparts of the compression path (walk, DP, chain, MK, Kraft) at the shapes the
 one-shot path gives them (the walk on the 128 segments of the 4 MiB
 gzip case and on single segments of a zero run, a period-3 run, random
 bytes and a partial core, with each launch's device time; the DP also
@@ -19,7 +19,13 @@ no path runs: matchlen on the match pairs of the 4 MiB corpus (with
 their length distribution), a seeded edge batch and
 ``matchlen_cuda.edge_pairs`` at every base offset 0-15; the byte
 histogram on the 4 MiB corpus, an unaligned view, 64 MiB of seeded
-bytes and 64 MiB of one value, beside ``torch.bincount``. Then
+bytes and 64 MiB of one value, beside ``torch.bincount``; and the three
+kernels of the planner's and splitter's scans at the shapes the 4 MiB
+gzip run gives them: the RLE decision sweep (every histogram batch of
+the planner), the RLE statistics (the mask search's 20 masks in one
+launch a mode, the splitter's largest one-mask calls) and the prefix
+tables (4 x 2^21 tokens and a seeded lane of one 64 KiB window, beside
+``torch.cumsum`` of their one-hot). Then
 compresses every case of zultra_tpu_torch/smoke_golden.json in one
 shot: a seeded 4 MiB mixed corpus in gzip (four 1 MiB windows in one
 device batch), then deflate, zlib at 64 KiB blocks, a preset
@@ -39,7 +45,7 @@ histogram kernel, Adler partial sums) with the checksums against zlib, and
 compression must
 rebuild the recorded input (sha256), match the recorded output digest
 (what zultra_tpu writes on its native engine), decode with zlib, and
-launch all five compression kernels, counted from 0 just before each run
+launch all eight compression kernels, counted from 0 just before each run
 (the statistics phase the histogram kernel, ``write_tokens`` the chain
 kernel; the ranks of the distributed run report their own counts). Prints
 the card's name and power limit, one line per phase, a JSON line of
@@ -76,8 +82,14 @@ KERNELS = {
     "mk12": ("zultra_tpu_torch/csrc/mk.cu", "zultra_tpu/ops/mk_pallas.py:62"),
     "kraft": ("zultra_tpu_torch/csrc/mk.cu", "zultra_tpu/ops/mk_pallas.py:153"),
     "hist": ("zultra_tpu_torch/csrc/histogram.cu", "zultra_tpu/ops/histogram.py:31"),
+    # No Pallas counterpart: these replace XLA programs of the planner and
+    # splitter (a lax.scan, the RLE statistics, jnp.cumsum).
+    "rle_sweep": ("zultra_tpu_torch/csrc/rle.cu", "zultra_tpu/ops/entropy_jax.py:462"),
+    "rle_stats": ("zultra_tpu_torch/csrc/rle.cu", "zultra_tpu/ops/entropy_jax.py:255"),
+    "prefix_tables": ("zultra_tpu_torch/csrc/prefix.cu", "zultra_tpu/ops/split_jax.py:176"),
 }
-COMPRESS_KERNELS = ("walk", "dp", "chain", "mk12", "kraft")  # every compression's path
+COMPRESS_KERNELS = ("walk", "dp", "chain", "mk12", "kraft", "rle_sweep", "rle_stats",
+                    "prefix_tables")  # every compression's path
 # The kernel that no path of either package runs (tests and exports only).
 OFF_PATH_KERNELS = {
     "matchlen": ("zultra_tpu_torch/csrc/matchlen.cu", "zultra_tpu/ops/matchlen.py:34"),
@@ -108,10 +120,19 @@ def host_ms(fn) -> tuple:
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bytes_ms(n: int) -> float:
+    """Milliseconds to move n bytes at the card's memory rate."""
+    return n / HBM_BYTES_PER_S * 1e3
+
+
 def bound_ms(*tensors) -> float:
     """Least time to read every input and write every output once at the
     card's memory rate (the kernels do no tensor-core work)."""
-    return sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S * 1e3
+    return bytes_ms(nbytes(*tensors))
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
@@ -177,11 +198,15 @@ def main() -> int:
         block_torch,
         chain_cuda,
         dp_cuda,
+        entropy_torch,
         histogram_cuda,
         launch_counts,
         matchlen_cuda,
         mk_cuda,
+        prefix_cuda,
         reset_launch_counts,
+        rle_cuda,
+        split_torch,
         walk_cuda,
     )
     from zultra_tpu_torch.ops.entropy_torch import (
@@ -210,7 +235,7 @@ def main() -> int:
     _build.lib()
     print(f"build: {_build.library_path().name} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds:.2f} s)")
-    for src in ("walk", "dp", "chain", "mk", "matchlen", "histogram"):
+    for src in ("walk", "dp", "chain", "mk", "matchlen", "histogram", "rle", "prefix"):
         for line in _build.build_log.get(src, "").splitlines():
             if line.strip():
                 print(f"nvcc -Xptxas -v {src}.cu: {line.strip()}")
@@ -284,6 +309,30 @@ def main() -> int:
     buckets = {}  # n_pad -> the planner's DP arguments of its first pass
     real_core, real_emit = block_torch.plan_block_core, block_torch.emit_tokens
     emitted = {}  # the first planner bucket's lane lengths, emission arguments and result
+    # The scans' arguments of the run, by shape: the sweep's histograms, the
+    # RLE statistics' calls (mode, lanes, masks), the splitter's tokens.
+    real_sweep = block_torch.optimize_for_rle
+    real_hist, real_bits = entropy_torch.rle_histogram_masks, entropy_torch.rle_bits_masks
+    real_prefix = split_torch.prefix_tables
+    scan_args = {"rle_sweep": {}, "rle_stats": {}, "prefix_tables": {}}
+
+    def recording_sweep(counts):
+        scan_args["rle_sweep"].setdefault(tuple(counts.shape), (counts.clone(),))
+        return real_sweep(counts)
+
+    def recording_hist(lens, n_def, masks):
+        scan_args["rle_stats"].setdefault(("histogram", lens.shape[0], len(masks)),
+                                          (lens.clone(), n_def.clone(), tuple(masks)))
+        return real_hist(lens, n_def, masks)
+
+    def recording_bits(lens, n_def, te, masks):
+        scan_args["rle_stats"].setdefault(("bits", lens.shape[0], len(masks)),
+                                          (lens.clone(), n_def.clone(), te.clone(), tuple(masks)))
+        return real_bits(lens, n_def, te, masks)
+
+    def recording_prefix(*args):
+        scan_args["prefix_tables"].setdefault(tuple(args[0].shape), tuple(a.clone() for a in args))
+        return real_prefix(*args)
 
     def recording_run_dp(*args):
         buckets.setdefault(args[2].shape[1], args)
@@ -301,11 +350,17 @@ def main() -> int:
 
     block_torch.run_dp = recording_run_dp
     block_torch.plan_block_core, block_torch.emit_tokens = recording_core, recording_emit
+    block_torch.optimize_for_rle = recording_sweep
+    entropy_torch.rle_histogram_masks, entropy_torch.rle_bits_masks = recording_hist, recording_bits
+    split_torch.prefix_tables = recording_prefix
     try:
         compress_device(data, 2, device=dev)  # also the warm-up of the library and caches
     finally:
         block_torch.run_dp = real_run_dp
         block_torch.plan_block_core, block_torch.emit_tokens = real_core, real_emit
+        block_torch.optimize_for_rle = real_sweep
+        entropy_torch.rle_histogram_masks, entropy_torch.rle_bits_masks = real_hist, real_bits
+        split_torch.prefix_tables = real_prefix
     for n_pad, args in sorted(buckets.items()):
         dp_rows.append(dp_row(f"gzip bucket {n_pad}", (*dp_cuda.prep_lanes(*args), args[5]), 3))
     dp_rows.append(dp_row("64 KiB zero run", one_lane(np.zeros(1 << 16, np.uint8)), 3))
@@ -481,6 +536,98 @@ def main() -> int:
     results["mk12"] = dict(mk_rows[0], plain_device="cuda", rows=mk_rows)
     results["kraft"] = dict(kraft_rows[0], plain_device="cuda", rows=kraft_rows)
 
+    # The planner's and splitter's scans at the shapes of the 4 MiB gzip
+    # run (recorded above): the RLE sweep on every histogram batch the
+    # planner gave it, the RLE statistics on the splitter's largest call
+    # and the planner's mask search (20 masks a launch), in both modes,
+    # and the prefix tables on the splitter's 4 x 2^21 tokens, beside
+    # torch.cumsum of their (W, n, 18) one-hot along the tokens (P18's
+    # part; the one-hot built beforehand). Each against its plain form on
+    # the card, with ms by events and the device ms of a call from a trace.
+    # The bound counts the bytes this run's data needs (``need``: the
+    # statistics read a lane's first n_def lengths, the prefix tables the
+    # tokens below n_tok), else every input and output once.
+    def scan_row(name, label, kernel, plain, args, reps, library=None, need=None):
+        got = kernel(*args)
+        want = plain(*args)
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        err = max(compare(f"{name} [{label}]", g, w) for g, w in pairs)
+        outs = got if isinstance(got, tuple) else (got,)
+        tensors = [a for a in args if torch.is_tensor(a)]
+        row = dict(batch=label, shape=[list(a.shape) for a in tensors], max_abs_err=err,
+                   ms=cuda_ms(lambda: kernel(*args), reps),
+                   device_ms=device_ms(lambda: kernel(*args), name, reps),
+                   plain_ms=cuda_ms(lambda: plain(*args), 1),
+                   bound_ms=(bound_ms(*tensors, *outs) if need is None
+                             else bytes_ms(need(args, outs))),
+                   library_ms=None if library is None else cuda_ms(library, 3))
+        print(f"{name} [{label}]: equal on {row['shape']}; kernel {row['ms']:.4f} ms (device "
+              f"{fmt_ms(row['device_ms'])}), plain {row['plain_ms']:.3f} ms (cuda), bound "
+              f"{row['bound_ms']:.4g} ms"
+              + ("" if library is None else f", torch.cumsum {row['library_ms']:.4f} ms"))
+        return row
+
+    sweep_rows = [scan_row("rle_sweep", f"planner {B} x {L}", rle_cuda.optimize_for_rle,
+                           rle_cuda.optimize_for_rle_plain, args, 20)
+                  for (B, L), args in sorted(scan_args["rle_sweep"].items(),
+                                             key=lambda kv: (-kv[0][1], -kv[0][0]))]
+    results["rle_sweep"] = dict(sweep_rows[0], plain_device="cuda", rows=sweep_rows)
+
+    def stats_plain(lens, n_def, *rest):
+        masks = rest[-1]
+        if len(rest) == 1:
+            return torch.cat([rle_cuda.rle_histogram_plain(lens, n_def, m) for m in masks])
+        B = lens.shape[0]
+        return torch.cat([rle_cuda.rle_bits_plain(lens, n_def, rest[0][i * B:(i + 1) * B], m)
+                          for i, m in enumerate(masks)])
+
+    def stats_kernel(lens, n_def, *rest):
+        if len(rest) == 1:
+            return rle_cuda.rle_histogram_masks(lens, n_def, rest[0])
+        return rle_cuda.rle_bits_masks(lens, n_def, *rest)
+
+    def stats_need(args, outs):
+        lens, n_def, *rest = args
+        te = [t for t in rest if torch.is_tensor(t)]
+        return 4 * int(n_def.clamp(0, lens.shape[1]).sum()) + nbytes(n_def, *te, *outs)
+
+    stats_keys = sorted(scan_args["rle_stats"], key=lambda k: (-k[2], -k[1], k[0]))
+    picked = [k for k in stats_keys if k[2] > 1][:2]  # the mask search's largest, both modes
+    picked += [k for k in stats_keys if k[2] == 1][:2]  # the largest one-mask calls
+    stats_rows = [scan_row("rle_stats", f"{mode}, {B} lanes x {M} masks", stats_kernel,
+                           stats_plain, scan_args["rle_stats"][mode, B, M], 20, need=stats_need)
+                  for mode, B, M in picked]
+    results["rle_stats"] = dict(stats_rows[0], plain_device="cuda", rows=stats_rows)
+
+    def prefix_need(args, outs):  # three int32 rows of the tokens below n_tok
+        tokens = int(args[3].clamp(0, args[0].shape[1]).sum())
+        return 12 * tokens + nbytes(args[3], *outs)
+
+    # Also a lane of one 64 KiB window, as a window planned alone gives
+    # the splitter (seeded tokens, a fifth of its bytes as the gzip run
+    # has): the small call, three chunks of 128 strides.
+    trng = np.random.default_rng(11)
+    window_tokens = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
+        trng.integers(0, 18, (1, 1 << 16)), trng.integers(0, 286, (1, 1 << 16)),
+        np.where(trng.random((1, 1 << 16)) < 0.4, trng.integers(288, 318, (1, 1 << 16)), 320),
+        np.array([13107]))]
+    prefix_calls = [(f"splitter {W_p} x {n_p}", args) for (W_p, n_p), args
+                    in sorted(scan_args["prefix_tables"].items(), reverse=True)]
+    prefix_rows = []
+    for label, args in prefix_calls + [("one window 1 x 65536", window_tokens)]:
+        onehot = ((args[0][:, :, None] == torch.arange(18, dtype=torch.int32, device=dev))
+                  & (torch.arange(args[0].shape[1], device=dev)[None, :]
+                     < args[3][:, None])[:, :, None]).to(torch.int32)
+        prefix_rows.append(scan_row(
+            "prefix_tables", label, prefix_cuda.prefix_tables, prefix_cuda.prefix_tables_plain,
+            args, 10, library=lambda: torch.cumsum(onehot, dim=1, dtype=torch.int32),
+            need=prefix_need))
+        prefix_rows[-1]["n_tok"] = args[3].tolist()
+        print(f"prefix_tables [{label}]: n_tok {prefix_rows[-1]['n_tok']}")
+        del onehot
+    results["prefix_tables"] = dict(prefix_rows[0], plain_device="cuda", rows=prefix_rows)
+    del scan_args
+
     # matchlen: the pair (i, i - offset) of every position of the 4 MiB
     # corpus whose first match row has length >= 3, with the share of
     # their lengths at most 8, 16, 32 and 64 bytes and at 258 (it sets
@@ -564,7 +711,7 @@ def main() -> int:
     # -- the one-shot path end to end, every golden case ----------------
     def timed_run(label, case, d, dictionary, fn):
         """Run ``fn`` with the counts set to 0; check its output and the
-        five path kernels' launches. -> (output, seconds, launches)"""
+        eight path kernels' launches. -> (output, seconds, launches)"""
         reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()

@@ -35,7 +35,7 @@ from zultra_tpu.ops.histogram import byte_histogram_pallas, token_histogram_jax
 from zultra_tpu.ops.suffix_jax import plcp_jax, suffix_array_jax
 from zultra_tpu_torch import ops
 from zultra_tpu_torch.corpus import lz_data, mixed_corpus
-from zultra_tpu_torch.ops import chain_cuda, checksum
+from zultra_tpu_torch.ops import checksum
 from zultra_tpu_torch.ops.emit_torch import write_tokens
 
 # One intra-op thread in each pytest worker (see tests/test_torch_pipeline.py).
@@ -160,9 +160,9 @@ def test_write_tokens_equals_jax_and_bitwriter(case):
     best = native.optimize_matches(slit, soff, data, table, start, n).astype(np.int32)
     lit, off = _encoders(data[start:], best[start:], dynamic)
 
-    chain_cuda.launches = 0
+    ops.reset_launch_counts()
     got = write_tokens(data, best, start, n, lit, off, device="cpu")
-    assert chain_cuda.launches == 0  # the plain form on a CPU tensor
+    assert ops.launch_counts()["chain"] == 0  # the plain form on a CPU tensor
     assert got == write_tokens_jax(data, best, start, n, lit, off)
     assert got == _bitwriter_tokens(data, best, start, lit, off)
 

@@ -5,6 +5,7 @@ engine (exact bytes).
 Skips without CUDA; run on the card with
 ``python -m pytest tests/test_torch_cuda.py``."""
 
+import collections
 import zlib
 
 import numpy as np
@@ -24,9 +25,19 @@ from zultra_tpu_torch.ops import (
     histogram_cuda,
     matchlen_cuda,
     mk_cuda,
+    prefix_cuda,
+    rle_cuda,
+    split_torch,
     walk_cuda,
 )
-from zultra_tpu_torch.ops.entropy_torch import build_lengths, kraft_inputs, mk_inputs, mk_lengths
+from zultra_tpu_torch.ops.entropy_torch import (
+    MASK_ORDER,
+    build_lengths,
+    kraft_inputs,
+    mask_search,
+    mk_inputs,
+    mk_lengths,
+)
 from zultra_tpu_torch.ops.matchfinder_torch import (
     HALO,
     SEG_CORE,
@@ -234,6 +245,188 @@ def test_mk_and_kraft_kernels_equal_plain(cuda, S, B):
             assert torch.equal(got.cpu(), want), (max_len, rows.data_ptr() % 16)
 
 
+TRACED_CALLS = 10
+
+
+def _device_kernels(fn, kernel):
+    """{name: launches} of the CUDA activities of TRACED_CALLS calls of
+    ``fn`` in a trace. A trace may drop launches, never add them, so a
+    count is at most the true one; a trace without ``kernel`` is taken
+    again, up to five times."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACED_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        names = collections.Counter(ev.name for ev in prof.events()
+                                    if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if any(kernel in name for name in names):
+            break
+    return names
+
+
+def _rle_rows(rng, B, L):
+    """Histogram rows of runs, zeros and spikes; edge rows first: all
+    zeros, eff 1, 3 and 4, one value to the end, a zero run of 5."""
+    c = np.repeat(rng.integers(0, 12, (B, L)), rng.integers(1, 9, L), axis=1)[:, :L]
+    c = np.where(rng.random((B, L)) < 0.15, 0, c) + np.where(rng.random((B, L)) < 0.05, 300, 0)
+    c[:, rng.integers(L // 2, L + 1):] = 0
+    edges = [np.zeros(L)] + [np.r_[np.full(e, 5), np.zeros(L - e)] for e in (1, 3, 4)]
+    edges += [np.full(L, 7), np.r_[np.full(3, 9), np.zeros(5), np.full(L - 8, 9)]]
+    for i, row in enumerate(edges[:B]):
+        c[i] = row
+    return torch.from_numpy(c.astype(np.int32))
+
+
+@pytest.mark.parametrize("L", [19, 32, 288, 320])
+@pytest.mark.parametrize("B", [1, 6, 84, 4099])
+def test_rle_sweep_kernel_equals_plain(cuda, L, B):
+    """The sweep kernel on an aligned and a misaligned copy equals the
+    plain form; one launch a call, whatever L."""
+    counts = _rle_rows(np.random.default_rng(L * 7 + B), B, L)
+    want = rle_cuda.optimize_for_rle_plain(counts)
+    for rows in (counts.to(cuda), _misaligned(counts.to(cuda))):
+        ops.reset_launch_counts()
+        got = rle_cuda.optimize_for_rle(rows)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["rle_sweep"] == 1
+        assert torch.equal(got.cpu(), want), rows.data_ptr() % 16
+    rows = counts.to(cuda)
+    names = _device_kernels(lambda: rle_cuda.optimize_for_rle(rows), "rle_sweep_kernel")
+    # the sweep kernel alone, at most once a call
+    assert len(names) == 1 and "rle_sweep_kernel" in next(iter(names)), names
+    assert sum(names.values()) <= TRACED_CALLS, names
+
+
+def _len_rows(rng, B, L):
+    """Code-length rows: runs of 7, 8 and 9 of one length, zero runs
+    around 3/11/138, lengths above 15, and seeded runs; n_def from 0 to L."""
+    lens = np.repeat(rng.integers(0, 18, (B, L)), rng.integers(1, 12, L), axis=1)[:, :L]
+    lens = np.where(rng.random((B, L)) < 0.2, 0, lens)
+    for i, (v, k) in enumerate(((5, 7), (5, 8), (6, 9), (0, 11), (0, 139), (16, 4))[:B]):
+        lens[i, :k] = v
+        lens[i, k:k + 2] = 17
+    n_def = rng.integers(0, L + 1, B)
+    n_def[: min(B, 3)] = (0, 1, L)[: min(B, 3)]
+    return torch.from_numpy(lens.astype(np.int32)), torch.from_numpy(n_def.astype(np.int32))
+
+
+@pytest.mark.parametrize("L", [19, 32, 288, 320])
+@pytest.mark.parametrize("B", [1, 40, 4096])
+def test_rle_stats_kernel_equals_plain(cuda, L, B):
+    """Both modes of the statistics kernel, every mask of MASK_ORDER in
+    one launch, on aligned and misaligned rows, equal the plain forms."""
+    rng = np.random.default_rng(L * 13 + B)
+    lens, n_def = _len_rows(rng, B, L)
+    te = torch.from_numpy(rng.integers(0, 8, (len(MASK_ORDER) * B, 19)).astype(np.int32))
+    want_h = rle_cuda.rle_histogram_masks(lens, n_def, MASK_ORDER)
+    want_b = rle_cuda.rle_bits_masks(lens, n_def, te, MASK_ORDER)
+    nd, t = n_def.to(cuda), te.to(cuda)
+    for rows in (lens.to(cuda), _misaligned(lens.to(cuda))):
+        ops.reset_launch_counts()
+        got_h = rle_cuda.rle_histogram_masks(rows, nd, MASK_ORDER)
+        got_b = rle_cuda.rle_bits_masks(rows, nd, _misaligned(t), MASK_ORDER)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["rle_stats"] == 2
+        assert torch.equal(got_h.cpu(), want_h) and torch.equal(got_b.cpu(), want_b)
+    for mask in (7, 31):
+        assert torch.equal(rle_cuda.rle_histogram_masks(lens.to(cuda), nd, (mask,)).cpu(),
+                           rle_cuda.rle_histogram_plain(lens, n_def, mask))
+
+
+def test_mask_search_one_stats_launch_a_mode(cuda):
+    """mask_search on the card equals its CPU form, with one rle_stats
+    launch for the histograms of all 20 masks and one for their bits."""
+    rng = np.random.default_rng(5)
+    lit = torch.from_numpy(np.where(rng.random((40, 288)) < 0.6,
+                                    rng.integers(1, 3000, (40, 288)), 0).astype(np.int32))
+    off = torch.from_numpy(np.where(rng.random((40, 32)) < 0.5,
+                                    rng.integers(1, 300, (40, 32)), 0).astype(np.int32))
+    ll, ol = build_lengths(lit, 15), build_lengths(off, 15)
+    want = mask_search(ll, ol)
+    ops.reset_launch_counts()
+    got = mask_search(ll.to(cuda), ol.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rle_stats"] == 2
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    ll, ol = ll.to(cuda), ol.to(cuda)
+    names = _device_kernels(lambda: mask_search(ll, ol), "rle_stats_kernel")
+    stats = sum(c for n, c in names.items() if "rle_stats_kernel" in n)
+    assert 1 <= stats <= 2 * TRACED_CALLS, names  # at most two a call
+
+
+def _token_lanes(rng, W, n, n_tok):
+    bucket = rng.integers(0, 18, (W, n))
+    sym1 = rng.integers(0, 286, (W, n))
+    sym2 = np.where(rng.random((W, n)) < 0.4, rng.integers(288, 318, (W, n)), 320)
+    return [torch.from_numpy(np.ascontiguousarray(a, np.int32))
+            for a in (bucket, sym1, sym2, np.asarray(n_tok))]
+
+
+_CHUNK = prefix_cuda.SPC * 256  # tokens a chunk of the kernels
+
+
+@pytest.mark.parametrize("n,n_tok", [
+    (1 << 21, (1 << 21, 1_500_000, 2_000_000, 1234)),
+    (8192, (0, 512, 8192)), (1000, (1000, 256, 999)),
+    (2 * _CHUNK + 1000, (2 * _CHUNK + 1000, 2 * _CHUNK, _CHUNK, _CHUNK - 1, _CHUNK + 1))])
+def test_prefix_tables_kernel_equals_plain(cuda, n, n_tok):
+    """The prefix tables on the card (two kernel launches, one call) equal
+    the plain form: the splitter's 4 x 2^21 lanes, no token, tokens
+    ending on a stride boundary, a lane not a multiple of 256, a lane of
+    three chunks with tokens ending on, before and after a chunk
+    boundary; inputs aligned and misaligned."""
+    args = _token_lanes(np.random.default_rng(n), len(n_tok), n, n_tok)
+    want = prefix_cuda.prefix_tables_plain(*args)
+    dev_args = [a.to(cuda) for a in args]
+    for first in (dev_args[0], _misaligned(dev_args[0])):
+        ops.reset_launch_counts()
+        got = prefix_cuda.prefix_tables(first, *dev_args[1:])
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["prefix_tables"] == 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    names = _device_kernels(lambda: prefix_cuda.prefix_tables(*dev_args),
+                            "prefix_tables_")
+    # the count and the write kernel and nothing else, each at most once a call
+    assert sorted(k for k in ("count", "write") for n in names
+                  if f"prefix_tables_{k}_kernel" in n) == ["count", "write"], names
+    assert len(names) == 2 and max(names.values()) <= TRACED_CALLS, names
+
+
+def test_split_batch_builds_no_one_hot(cuda, monkeypatch):
+    """split_batch on the card takes the prefix kernels, never the plain
+    form (its one-hot and cumsums), and equals its CPU form."""
+    corpus = _corpus(70_000)
+    n = split_torch.split_bucket(len(corpus))
+    win = np.zeros((1, n), np.uint8)
+    win[0, : len(corpus)] = corpus
+    from zultra_tpu import native
+
+    table = native.build_match_table(np.ascontiguousarray(corpus), 0).astype(np.int32)
+    rl = np.zeros((1, n), np.int32)
+    ro = np.zeros((1, n), np.int32)
+    rl[0, : len(corpus)], ro[0, : len(corpus)] = table[:, 0, 0], table[:, 0, 1]
+    args = [torch.from_numpy(a) for a in (win, rl, ro)]
+    n_real = torch.tensor([len(corpus)], dtype=torch.int32)
+    cap = split_torch.input_cap(len(corpus))
+    want = split_torch.split_batch(*args, 0, n_real, cap, 0)
+
+    def refuse(*a):
+        raise AssertionError("the plain prefix tables ran on the card's path")
+
+    monkeypatch.setattr(prefix_cuda, "prefix_tables_plain", refuse)
+    ops.reset_launch_counts()
+    got = split_torch.split_batch(*[a.to(cuda) for a in args], 0, n_real.to(cuda), cap, 0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["prefix_tables"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
 def test_one_shot_equals_native(cuda):
     engine.set_engine("native")
     try:
@@ -416,7 +609,8 @@ def test_windows_distributed_gloo_on_one_card(cuda, tmp_path):
             init_method=f"file://{tmp_path / 'rendezvous'}", timeout=300)
         assert out == zt.compress(data, 1, 32768)
         for st in stats:
-            assert all(st["launches"][k] > 0 for k in ("walk", "dp", "chain", "mk12", "kraft"))
+            assert all(st["launches"][k] > 0 for k in ("walk", "dp", "chain", "mk12", "kraft",
+                                                        "rle_sweep", "rle_stats", "prefix_tables"))
     finally:
         engine._active_engine = None
 
@@ -428,9 +622,9 @@ def test_sharded_corpus_stats_on_the_card(cuda):
     from zultra_tpu_torch.parallel import sharded_corpus_stats
 
     data = _corpus(5 * 65536 + 77).tobytes()
-    histogram_cuda.launches = 0
+    ops.reset_launch_counts()
     got = sharded_corpus_stats(data, devices=[cuda, cuda])
-    assert histogram_cuda.launches == 2
+    assert ops.launch_counts()["hist"] == 2
     want = sharded_corpus_stats(data, devices=["cpu", "cpu"])
     assert got["n_windows"] == want["n_windows"] == 6
     for key in ("suffix_arrays", "ranks"):
@@ -465,7 +659,7 @@ def test_write_tokens_on_the_card(cuda):
     slit[: len(static_literal_code_lengths())] = static_literal_code_lengths()
     best = native.optimize_matches(slit, np.asarray(static_offset_code_lengths(), np.int32),
                                    data, table, 5000, len(data)).astype(np.int32)
-    chain_cuda.launches = 0
+    ops.reset_launch_counts()
     got = write_tokens(data, best, 5000, len(data), lit, off, device=cuda)
-    assert chain_cuda.launches == 1
+    assert ops.launch_counts()["chain"] == 1
     assert got == write_tokens(data, best, 5000, len(data), lit, off, device="cpu")

@@ -45,6 +45,9 @@ _SIGNATURES = {
     "zt_matchlen": [_VP, _LL, _VP, _VP, _VP, _LL, _VP],
     "zt_hist": [_VP, _LL, _LL, _LL, _VP, _I, _VP, _I, _VP],
     "zt_hist_blocks_per_sm": [],  # returns the blocks an SM holds, or -(CUDA error)
+    "zt_rle_sweep": [_VP, _VP, _I, _I, _VP],
+    "zt_rle_stats": [_VP] * 4 + [_I, _I, _VP, _I, _I, _VP],  # masks: a host int array
+    "zt_prefix_tables": [_VP] * 7 + [_I] * 3 + [_VP],
 }
 
 

@@ -39,6 +39,7 @@ import math
 import torch
 
 from .. import _build
+from . import count_launch
 
 # Segment and warm-up sizes, from a sweep on an H100 (`python3 -m
 # zultra_tpu_torch.chain_bench --sweep`, PERF.md §6): the fewest re-walks
@@ -49,8 +50,6 @@ WARM = 128  # warm-up positions below each segment
 ST_NONE, ST_EXACT, ST_ANCHORED, ST_SPECULATED, ST_RERUN, ST_UNMERGED = range(6)
 SEG_MAX = 16384  # a segment, and its warm-up, must fit the kernels' shared memory
 N_MAX = 1 << 30  # positions per lane (hops are clamped to this, so no int32 overflow)
-
-launches = 0  # calls of chain_marks on CUDA tensors since the last reset
 
 
 def check_segments(seg: int, warm: int) -> None:
@@ -66,7 +65,6 @@ def chain_marks(step: torch.Tensor, start: torch.Tensor, length: torch.Tensor, *
     ``status=True`` also returns the (B, ceil(n / seg)) int8 segment
     status (``ST_*``). A CPU tensor takes the plain forms: pointer
     doubling, or the schedule's model when the status is asked for."""
-    global launches
     check_segments(seg, warm)
     if step.device.type == "cpu":
         if status:
@@ -85,7 +83,7 @@ def chain_marks(step: torch.Tensor, start: torch.Tensor, length: torch.Tensor, *
     st = torch.empty((B, nseg), dtype=torch.int8, device=step.device)
     _build.launch("zt_chain", step.data_ptr(), start.data_ptr(), length.data_ptr(),
                   marks.data_ptr(), fx.data_ptr(), st.data_ptr(), B, n, seg, warm)
-    launches += 1
+    count_launch("chain")
     marks = marks.view(torch.bool)  # every byte is 0 or 1
     return (marks, st) if status else marks
 

@@ -53,6 +53,7 @@ from ..constants import (
 )
 
 from .. import _build
+from . import count_launch
 from .symbol_map import (
     matchlen_sym_extra_base,
     offset_index,
@@ -77,8 +78,6 @@ WARM = 512  # warm-up positions above each segment
 SEQ_LIMIT = (CLAMPX - 20) // 15
 # Segment status, as the kernel leaves it.
 ST_NONE, ST_EXACT, ST_ANCHORED, ST_SPECULATED, ST_RERUN, ST_SEQUENTIAL = range(6)
-
-launches = 0  # calls of dp_choices on CUDA tensors since the last reset
 
 
 def varlen_tables(lit_lens: torch.Tensor) -> torch.Tensor:
@@ -142,7 +141,6 @@ def dp_choices(lit, p1, p2, varlen40, length, *, status=False, seg=SEG, warm=WAR
     status (``ST_*``). A CPU tensor takes the plain forms: the
     sequential recurrence, or the schedule's model when the status is
     asked for."""
-    global launches
     check_segments(seg, warm)
     if lit.device.type == "cpu":
         if status:
@@ -165,7 +163,7 @@ def dp_choices(lit, p1, p2, varlen40, length, *, status=False, seg=SEG, warm=WAR
     _build.launch("zt_dp", lit.data_ptr(), p1.data_ptr(), p2.data_ptr(), varlen40.data_ptr(),
                   length.data_ptr(), out.data_ptr(), cost.data_ptr(), warm_costs.data_ptr(),
                   st.data_ptr(), B, n, seg, warm, seq_limit)
-    launches += 1
+    count_launch("dp")
     return (out, st) if status else out
 
 

@@ -8,7 +8,10 @@ runs on a TPU (``_mk_impl() == "pallas"``): the sequential MK merge and
 parent-chain phases and the Kraft lengthen/shorten sweeps go through the
 kernels of ``mk_cuda`` (plain loops on CPU tensors), every histogram of
 the batch a lane; the sorts, MK phase 3's closed form and the scatters
-back to symbol order are tensor ops around them. Reference semantics:
+back to symbol order are tensor ops around them. The Zopfli rewrite's
+decision sweep and the RLE statistics (every mask of the CL-mask search
+in one launch a mode) go through the kernels of ``rle_cuda``. Reference
+semantics:
 zultra src/huffman/huffencoder.c:157-346 and :446-735,
 src/blockdeflate.c:538-618. Every tie-break (sort by (weight, symbol),
 strict phase-1 comparisons, the <=1-used-symbol quirk) is reproduced.
@@ -30,6 +33,7 @@ from ..constants import (
 )
 
 from . import mk_cuda
+from .rle_cuda import optimize_for_rle, rle_bits_masks, rle_histogram_masks  # noqa: F401
 
 INF32 = 2**30
 I32 = torch.int32
@@ -195,102 +199,17 @@ def canonical_codewords(lengths: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _run_structure(lens: torch.Tensor, n_def: torch.Tensor):
-    """Maximal runs of each lane's first n_def entries: (is_start,
-    run_len) with run_len meaningful at starts."""
-    B, L = lens.shape
-    dev = lens.device
-    pos = _arange(L, dev)[None, :]
-    valid = pos < n_def[:, None]
-    prev = torch.cat([torch.full((B, 1), -1, dtype=lens.dtype, device=dev), lens[:, :-1]], dim=1)
-    is_start = valid & ((pos == 0) | (lens != prev))
-    nxt_c = torch.where(is_start, pos, INF32)
-    nxt_c = torch.cat([nxt_c[:, 1:], torch.full((B, 1), INF32, dtype=I32, device=dev)], dim=1)
-    nxt = torch.flip(torch.cummin(torch.flip(nxt_c, [1]), dim=1)[0], [1])
-    run_end = torch.minimum(nxt, n_def[:, None])
-    return is_start, torch.where(is_start, run_end - pos, 0)
-
-
-def _run_counts(value, r, mask: int):
-    """Per-run RLE emission counts under a static ``mask`` (walk_var_
-    lengths): (n16, n17, n18, lit_count, lit_value)."""
-    zero = value == 0
-    zeros = torch.zeros_like(r)
-    r3 = r >= 3
-    if mask & 4:
-        ge11 = r >= 11
-        q = r // 138
-        rem = r % 138
-        n18 = torch.where(r3 & ge11, q + (rem >= 11).to(I32), 0)
-        after18 = torch.where(r3 & ge11, torch.where(rem >= 11, 0, rem), r)
-    else:
-        n18 = zeros
-        after18 = r
-    if mask & 2:
-        q10 = after18 // 10
-        rem10 = after18 % 10
-        n17 = torch.where(r3 & (after18 >= 3), q10 + (rem10 >= 3).to(I32), 0)
-        after17 = torch.where(r3 & (after18 >= 3), torch.where(rem10 >= 3, 0, rem10), after18)
-    else:
-        n17 = zeros
-        after17 = after18
-    z_lit = after17
-
-    vclamp = torch.clamp(value, max=15)
-    rp = r - 1
-    if mask & 1:
-        s7 = (rp == 7) if not (mask & 8) else torch.zeros_like(rp, dtype=torch.bool)
-        s8 = (rp == 8) if not (mask & 16) else torch.zeros_like(rp, dtype=torch.bool)
-        q6 = rp // 6
-        rem6 = rp % 6
-        n16_gen = q6 + (rem6 >= 3).to(I32)
-        left_gen = torch.where(rem6 < 3, rem6, 0)
-        n16 = torch.where(s7 | s8, 2, n16_gen)
-        nz_left = torch.where(s7 | s8, 0, left_gen)
-    else:
-        n16 = zeros
-        nz_left = rp
-    nz_lit = 1 + nz_left
-
-    n16 = torch.where(zero, 0, n16)
-    n17 = torch.where(zero, n17, 0)
-    n18 = torch.where(zero, n18, 0)
-    lit_count = torch.where(zero, z_lit, nz_lit)
-    lit_value = torch.where(zero, 0, vclamp)
-    return n16, n17, n18, lit_count, lit_value
-
-
-def _rle_runs(lens, n_def, mask):
-    is_start, r = _run_structure(lens, n_def)
-    counts = _run_counts(lens, torch.clamp(r, min=1), mask)
-    n16, n17, n18, lit_c = (torch.where(is_start, x, 0) for x in counts[:4])
-    return is_start, n16, n17, n18, lit_c, counts[4]
-
-
 def rle_histogram(lens: torch.Tensor, n_def: torch.Tensor, mask: int) -> torch.Tensor:
     """CL-symbol histogram of the RLE walk over each lane's lengths
     (update_var_lengths_entropy). lens (B, L), n_def (B,) -> (B, 19)."""
-    B = lens.shape[0]
-    is_start, n16, n17, n18, lit_c, lit_v = _rle_runs(lens, n_def, mask)
-    idx = torch.where(is_start, torch.clamp(lit_v, 0, 15), NCODELENSYMS)
-    hist = _scatter_dump((B, NCODELENSYMS), lens.device, idx, lit_c, "sum")
-    hist[:, 16] += n16.sum(dim=1, dtype=I32)
-    hist[:, 17] += n17.sum(dim=1, dtype=I32)
-    hist[:, 18] += n18.sum(dim=1, dtype=I32)
-    return hist
+    return rle_histogram_masks(lens, n_def, (mask,))
 
 
 def rle_bits(lens: torch.Tensor, n_def: torch.Tensor, te_lens: torch.Tensor,
              mask: int) -> torch.Tensor:
     """Bit size of the RLE-coded table under CL lengths ``te_lens``
     (get_var_lengths_size). -> (B,)."""
-    _, n16, n17, n18, lit_c, lit_v = _rle_runs(lens, n_def, mask)
-    lit_len = torch.gather(te_lens, 1, torch.clamp(lit_v, 0, 15).to(I64))
-    bits = (lit_c * lit_len).sum(dim=1, dtype=I32)
-    bits = bits + n16.sum(dim=1, dtype=I32) * (te_lens[:, 16] + 2)
-    bits = bits + n17.sum(dim=1, dtype=I32) * (te_lens[:, 17] + 3)
-    bits = bits + n18.sum(dim=1, dtype=I32) * (te_lens[:, 18] + 7)
-    return bits
+    return rle_bits_masks(lens, n_def, te_lens, (mask,))
 
 
 def raw_table_size(te_lens: torch.Tensor) -> torch.Tensor:
@@ -307,78 +226,6 @@ def defined_count(lens: torch.Tensor, min_symbols: int) -> torch.Tensor:
     posp1 = _arange(S, lens.device)[None, :] + 1
     last = torch.where(lens != 0, posp1, 0).max(dim=1)[0]
     return torch.clamp(last, min=min_symbols)
-
-
-# ---------------------------------------------------------------------------
-# Zopfli-style histogram rewrite
-# ---------------------------------------------------------------------------
-
-
-def optimize_for_rle(counts: torch.Tensor) -> torch.Tensor:
-    """optimize_histogram_for_rle (huffman.py:367-419; reference
-    huffutils.c:34-114), batched: a decision sweep over the ORIGINAL
-    counts, then one vectorized rewrite of the decided segments."""
-    B, L = counts.shape
-    dev = counts.device
-    pos = _arange(L, dev)[None, :]
-    eff = torch.where(counts != 0, pos + 1, 0).max(dim=1)[0]
-    in_len = pos < eff[:, None]
-
-    # good_for_rle: zero runs >= 5, nonzero runs >= 7 (within eff).
-    prev = torch.cat([torch.full((B, 1), -1, dtype=counts.dtype, device=dev), counts[:, :-1]], dim=1)
-    is_start = in_len & ((pos == 0) | (counts != prev))
-    nxt_c = torch.where(is_start, pos, INF32)
-    nxt_c = torch.cat([nxt_c[:, 1:], torch.full((B, 1), INF32, dtype=I32, device=dev)], dim=1)
-    nxt = torch.flip(torch.cummin(torch.flip(nxt_c, [1]), dim=1)[0], [1])
-    run_len = torch.minimum(nxt, eff[:, None]) - pos
-    good_start = is_start & torch.where(counts == 0, run_len >= 5, run_len >= 7)
-    start_pos = torch.cummax(torch.where(is_start, pos, -1), dim=1)[0]
-    good_at = torch.zeros((B, L), dtype=I32, device=dev).scatter_reduce_(
-        1, torch.where(is_start, pos, 0).to(I64).expand(B, L).contiguous(),
-        good_start.to(I32), "amax")
-    good = in_len & (torch.gather(good_at, 1, torch.clamp(start_pos, 0, L - 1).to(I64)) > 0)
-
-    # Decision sweep over i = 0..eff inclusive.
-    c_ext = torch.cat([counts, torch.zeros((B, 4), dtype=counts.dtype, device=dev)], dim=1)
-    limit4 = (c_ext[:, :L] + c_ext[:, 1:L + 1] + c_ext[:, 2:L + 2] + c_ext[:, 3:L + 3] + 2) // 4
-    good_ext = torch.cat([good, torch.zeros((B, 1), dtype=torch.bool, device=dev)], dim=1)
-    stride = torch.zeros(B, dtype=I32, device=dev)
-    limit = c_ext[:, 0].to(I32)
-    total = torch.zeros(B, dtype=I32, device=dev)
-    wr, wstart, wval = [], [], []
-    for i in range(L + 1):
-        at_end = i == eff
-        inside = i < eff
-        ci = c_ext[:, i]
-        boundary = at_end | (inside & (good_ext[:, i] | ((ci - limit).abs() >= 4)))
-        do_write = boundary & ((stride >= 4) | ((stride >= 3) & (total == 0)))
-        val = torch.clamp((total + stride // 2) // torch.clamp(stride, min=1), min=1)
-        val = torch.where(total == 0, 0, val)
-        wr.append(do_write & (i <= eff))
-        wstart.append(i - stride)
-        wval.append(val)
-        lim_new = torch.where(i < eff - 3, limit4[:, min(i, L - 1)],
-                              torch.where(inside, ci, 0))
-        limit = torch.where(boundary, lim_new, limit)
-        stride = torch.where(boundary, 0, stride) + (i <= eff).to(I32)
-        total = torch.where(boundary, 0, total) + torch.where(inside, ci, 0)
-    wr = torch.stack(wr, dim=1)
-    wstart = torch.stack(wstart, dim=1)
-    wval = torch.stack(wval, dim=1)
-    wend = _arange(L + 1, dev)[None, :].expand(B, L + 1)
-
-    # Rewrite segments [wstart, wend): each position takes the latest
-    # write-start at or before it (segments are disjoint).
-    ws = torch.where(wr, torch.clamp(wstart, 0, L - 1), 0).to(I64)
-    end_at = torch.full((B, L), -1, dtype=I32, device=dev).scatter_reduce_(
-        1, ws, torch.where(wr, wend, -1), "amax")
-    val_at = torch.full((B, L), -1, dtype=I32, device=dev).scatter_reduce_(
-        1, ws, torch.where(wr, wval, -1), "amax")
-    wkey = torch.cummax(torch.where(end_at >= 0, pos, -1), dim=1)[0]
-    wkey_c = torch.clamp(wkey, 0, L - 1).to(I64)
-    covered = (wkey >= 0) & (pos < torch.gather(end_at, 1, wkey_c))
-    fill_val = torch.gather(val_at, 1, wkey_c)
-    return torch.where((eff[:, None] > 0) & covered, fill_val, counts)
 
 
 # ---------------------------------------------------------------------------
@@ -431,10 +278,10 @@ def _symbol_and_table_cost(lit_hist, off_hist, lit_len, off_len):
     cost = (lit_counted * (lit_len + extra)).sum(dim=1, dtype=I32)
     cost = cost + (off_hist * (off_len + rev_off)).sum(dim=1, dtype=I32)
     lens, _, _, n_def = _concat_lengths(lit_len, off_len)
-    te_len = mk_lengths(rle_histogram(lens, n_def, 7))
+    te_len = mk_lengths(rle_histogram_masks(lens, n_def, (7,))).contiguous()
     cost = cost + 5 + 5 + 4
     cost = cost + 3 * raw_table_size(te_len)
-    cost = cost + rle_bits(lens, n_def, te_len, 31)
+    cost = cost + rle_bits_masks(lens, n_def, te_len, (31,))
     return cost + 3
 
 
@@ -458,7 +305,7 @@ def mask_histograms(lit_len: torch.Tensor, off_len: torch.Tensor):
     into one (len(MASK_ORDER) * B, 19) batch, with the concatenated
     lengths (B, 320) and n_lit, n_off, n_def (B,)."""
     lens, n_lit, n_off, n_def = _concat_lengths(lit_len, off_len)
-    hists = torch.cat([rle_histogram(lens, n_def, mask) for mask in MASK_ORDER])
+    hists = rle_histogram_masks(lens, n_def, MASK_ORDER)
     return hists, lens, n_lit, n_off, n_def
 
 
@@ -469,9 +316,9 @@ def mask_search(lit_len: torch.Tensor, off_len: torch.Tensor):
     n_lit, n_off)."""
     B = lit_len.shape[0]
     hists, lens, n_lit, n_off, n_def = mask_histograms(lit_len, off_len)
-    cl_m = limited_lengths(mk_lengths(hists), 7).view(len(MASK_ORDER), B, NCODELENSYMS)
-    cost_m = torch.stack([rle_bits(lens, n_def, cl_m[i], mask)
-                          for i, mask in enumerate(MASK_ORDER)], dim=1)
+    cl_flat = limited_lengths(mk_lengths(hists), 7).contiguous()
+    cl_m = cl_flat.view(len(MASK_ORDER), B, NCODELENSYMS)
+    cost_m = rle_bits_masks(lens, n_def, cl_flat, MASK_ORDER).view(len(MASK_ORDER), B).T
     best = cost_m.min(dim=1)[0]
     mi = _arange(len(MASK_ORDER), lit_len.device)[None, :]
     midx = torch.where(cost_m == best[:, None], mi, -1).max(dim=1)[0]

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from . import count_launch
 
 THREADS = 256  # csrc/histogram.cu's block
 UNROLL = 4  # 16-byte words each thread loads before it counts them
@@ -37,7 +38,6 @@ BINS = 256
 MODEL_COUNTERS = ("head_bytes", "body_bytes", "tail_bytes", "run_words", "run_adds",
                   "byte_adds", "blocks_with_work")
 
-launches = 0  # kernel launches since the last reset
 _resident = {}  # device index -> blocks the card holds at once
 _states = {}  # (device index, stream) -> the kernel's accumulators and ticket
 
@@ -73,7 +73,6 @@ def grid_for(n_vec: int, resident: int) -> int:
 def byte_histogram(data: torch.Tensor, n_symbols: int = 256) -> torch.Tensor:
     """data (n,) uint8 -> (n_symbols,) int64 counts of the values below
     n_symbols."""
-    global launches
     _check(data, n_symbols)
     if data.device.type == "cpu":
         return byte_histogram_plain(data, n_symbols)
@@ -96,7 +95,7 @@ def byte_histogram(data: torch.Tensor, n_symbols: int = 256) -> torch.Tensor:
             _states[key] = torch.zeros(BINS + 1, dtype=torch.int64, device=data.device)
         _build.launch("zt_hist", data.data_ptr(), n, head, n_vec, out.data_ptr(), n_symbols,
                       _states[key].data_ptr(), blocks)
-    launches += 1
+    count_launch("hist")
     return out
 
 

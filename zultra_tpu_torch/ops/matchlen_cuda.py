@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from . import count_launch
 from ..constants import MAX_MATCH_SIZE
 
 SPAN = MAX_MATCH_SIZE + 1  # bytes compared per pair at most
@@ -37,8 +38,6 @@ HEAD = 16
 MODEL_COUNTERS = ("pairs", "no_span", "head_done", "queued", "at_cap", "at_258",
                   "bytes_loaded", "max_block_queue")
 
-launches = 0  # kernel launches since the last reset
-
 
 def _check(data: torch.Tensor, positions: torch.Tensor, prev_positions: torch.Tensor) -> None:
     if data.dim() != 1 or positions.dim() != 1 or prev_positions.shape != positions.shape:
@@ -49,7 +48,6 @@ def match_lengths(data: torch.Tensor, positions: torch.Tensor,
                   prev_positions: torch.Tensor) -> torch.Tensor:
     """data (n,) uint8, positions / prev_positions (P,) int32 -> (P,)
     int32 match lengths."""
-    global launches
     _check(data, positions, prev_positions)
     if data.device.type == "cpu":
         return match_lengths_plain(data, positions, prev_positions)
@@ -61,7 +59,7 @@ def match_lengths(data: torch.Tensor, positions: torch.Tensor,
         return out
     _build.launch("zt_matchlen", data.data_ptr(), data.numel(), positions.data_ptr(),
                   prev_positions.data_ptr(), out.data_ptr(), positions.numel())
-    launches += 1
+    count_launch("matchlen")
     return out
 
 

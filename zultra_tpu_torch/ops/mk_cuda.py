@@ -52,6 +52,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from . import count_launch
 from .symbol_map import floor_log2
 
 MAX_S = 288  # the kernels' shared-memory arrays hold 288 symbols per lane
@@ -60,9 +61,6 @@ MAX_S = 288  # the kernels' shared-memory arrays hold 288 symbols per lane
 WARP_LANES = 512
 I32 = torch.int32
 I64 = torch.int64
-
-mk12_launches = 0  # kernel launches since the last reset
-kraft_launches = 0
 
 
 def _check(name: str, rows: torch.Tensor, *lanes: torch.Tensor) -> None:
@@ -88,13 +86,12 @@ def mk_phase12(a0: torch.Tensor, n_used: torch.Tensor) -> torch.Tensor:
 def _launch_mk12(a0: torch.Tensor, n_used: torch.Tensor, warp_per_lane: bool) -> torch.Tensor:
     """Launch the MK kernel in the given layout (``mk_bench`` and the card
     tests time and check both; ``mk_phase12`` chooses by B)."""
-    global mk12_launches
     _check("mk12", a0, n_used)
     B, S = a0.shape
     out = torch.empty_like(a0)
     _build.launch("zt_mk12", a0.data_ptr(), n_used.data_ptr(), out.data_ptr(), B, S,
                   int(warp_per_lane))
-    mk12_launches += 1
+    count_launch("mk12")
     return out
 
 
@@ -150,7 +147,6 @@ def kraft_limit(clamped_sorted: torch.Tensor, n_used: torch.Tensor, kraft0: torc
     max_len 1..15 -> (B, S) int32 repaired sorted lengths: lengthen from
     position S-1 down while the sum is over 2^max_len, then shorten from
     position 0 up while room remains."""
-    global kraft_launches
     if clamped_sorted.device.type == "cpu":
         return kraft_limit_plain(clamped_sorted, n_used, kraft0, max_len)
     _check("kraft", clamped_sorted, n_used, kraft0)
@@ -160,7 +156,7 @@ def kraft_limit(clamped_sorted: torch.Tensor, n_used: torch.Tensor, kraft0: torc
     out = torch.empty_like(clamped_sorted)
     _build.launch("zt_kraft", clamped_sorted.data_ptr(), n_used.data_ptr(), kraft0.data_ptr(),
                   out.data_ptr(), B, S, max_len)
-    kraft_launches += 1
+    count_launch("kraft")
     return out
 
 

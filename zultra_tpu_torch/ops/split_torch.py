@@ -6,7 +6,8 @@ written out. The recursion of the reference splitter (zultra
 src/blockdeflate.c:634-813) runs level by level: checkpoints are
 decision-independent (c_k = t1 + 256(k-1)), drift statistics are
 differences of 18-bucket prefix sums, left/right histograms are prefix
-histograms, and each level evaluates the MK costs of its drift-triggered
+histograms (both tables from the ``prefix_tables`` kernels of
+``prefix_cuda``), and each level evaluates the MK costs of its drift-triggered
 candidates in one batched ``entropy_torch.dynamic_cost`` call. With
 ``trig_cap`` > 0 only the first ``trig_cap`` triggers of a level are
 evaluated and a lane with more sets ``ovf``; the caller then reruns
@@ -31,6 +32,7 @@ from ..constants import (
 )
 
 from .chain_cuda import chain_marks
+from .prefix_cuda import prefix_tables
 from .entropy_torch import dynamic_cost
 from .symbol_map import matchlen_sym_extra_base, offset_index, offset_sym_extra_base
 
@@ -99,7 +101,7 @@ def token_structure(window, row_len, row_off, is_tok):
     byte = window.to(I32)
     sym1 = torch.where(is_match, len_sym, byte)
     sym2 = torch.where(is_match, NLITERALSYMS + off_sym, NBINS)
-    bucket = torch.where(is_match, torch.where(row_len >= 9, 17, 16),
+    bucket = torch.where(is_match, torch.where(row_len >= 9, 17, 16).to(I32),
                          ((byte >> 4) & 0xC) | (byte & 0x3))
 
     n_tok = is_tok.sum(dim=1, dtype=I32)
@@ -128,25 +130,10 @@ def split_batch(win_p, rl, ro, prev: int, n_real, in_cap: int, trig_cap: int = 0
     tok_iota = torch.arange(n, dtype=I32, device=dev)[None, :]
     tok_valid = tok_iota < n_tok[:, None]
 
-    # 18-bucket inclusive prefix sums with a leading zero row:
-    # P18[w, t+1] = bucket counts over tokens [0..t].
-    onehot18 = ((bucket_t[:, :, None] == torch.arange(18, dtype=I32, device=dev))
-                & tok_valid[:, :, None]).to(I32)
-    P18 = torch.cat([torch.zeros((W, 1, 18), dtype=I32, device=dev),
-                     torch.cumsum(onehot18, dim=1, dtype=I32)], dim=1)
-    del onehot18
-
-    # Stride-256 symbol prefix table: P256[w, q] = symbol counts over
-    # tokens [0, 256q). Bin NBINS is the drop bin.
+    # P18 (W, n + 1, 18): 18-bucket counts over tokens [0..t] at row t + 1;
+    # P256 (W, n_q, NBINS): symbol counts over tokens [0, 256q).
+    P18, P256 = prefix_tables(bucket_t, sym1_t, sym2_t, n_tok)
     n_q = n // 256 + 2
-    qid = tok_iota // 256 + 1
-    row = torch.where(tok_valid, qid, n_q - 1).to(I64)
-    flat = torch.zeros((W, n_q * (NBINS + 1)), dtype=I32, device=dev)
-    ones = torch.ones((W, n), dtype=I32, device=dev)
-    flat.scatter_add_(1, row * (NBINS + 1) + torch.where(tok_valid, sym1_t, NBINS), ones)
-    s2 = torch.where(tok_valid & (sym2_t < NBINS), sym2_t, NBINS)
-    flat.scatter_add_(1, row * (NBINS + 1) + s2, ones)
-    P256 = torch.cumsum(flat.view(W, n_q, NBINS + 1), dim=1, dtype=I32)[:, :, :NBINS].contiguous()
 
     ends_sorted = torch.where(tok_valid, ends, INF32)
     j256 = torch.arange(256, dtype=I32, device=dev)

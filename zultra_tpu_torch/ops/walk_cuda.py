@@ -32,14 +32,13 @@ from ..constants import (
 )
 
 from .. import _build
+from . import count_launch
 
 # Core positions a chunk walks, from a sweep on an H100 (`python3 -m
 # zultra_tpu_torch.walk_bench --sweep`, PERF.md §6).
 CHUNK = 4096
 CHUNKS_MAX = 32  # chunks a segment, at most: one warp lane each in the sweep
 SEGMENTS_MAX = 65535  # segments a call, at most: the park's grid height
-
-launches = 0  # calls of walk_segments on CUDA tensors since the last reset
 
 
 def n_chunks(core_len: int, chunk: int) -> int:
@@ -62,7 +61,6 @@ def walk_segments(salcp: torch.Tensor, halo: int, core_len: int,
     a position has fewer than 8 matches. On the card: three launches,
     ``chunk`` core positions a chunk walk, ``scratch_bytes`` of scratch.
     A CPU tensor takes the plain walk."""
-    global launches
     J = n_chunks(core_len, chunk)
     if salcp.device.type == "cpu":
         return walk_segments_plain(salcp, halo, core_len)
@@ -81,7 +79,7 @@ def walk_segments(salcp: torch.Tensor, halo: int, core_len: int,
     nidx = torch.empty((S,), dtype=torch.int32, device=salcp.device)
     _build.launch("zt_walk", salcp.data_ptr(), tables.data_ptr(), nidx.data_ptr(),
                   rows.data_ptr(), S, n, halo, core_len, chunk)
-    launches += 1
+    count_launch("walk")
     return rows
 
 

@@ -33,7 +33,14 @@ from torch.profiler import ProfilerActivity, profile
 
 from . import device_pipeline
 from .corpus import case_inputs
-from .ops import block_torch, launch_counts, matchfinder_torch, reset_launch_counts, split_torch
+from .ops import (
+    block_torch,
+    entropy_torch,
+    launch_counts,
+    matchfinder_torch,
+    reset_launch_counts,
+    split_torch,
+)
 
 GOLDEN = Path(__file__).resolve().parent / "smoke_golden.json"
 
@@ -45,6 +52,7 @@ STAGES = [
     (device_pipeline, "split_batch", "block split"),
     (split_torch, "dynamic_cost", "block split: dynamic_cost"),
     (split_torch, "chain_marks", "block split: chain"),
+    (split_torch, "prefix_tables", "block split: prefix_tables"),
     (device_pipeline, "plan_blocks_device_multi", "block plans"),
     (block_torch, "token_hist", "block plans: token_hist"),
     (block_torch, "dynamic_cost", "block plans: dynamic_cost"),
@@ -57,6 +65,10 @@ STAGES = [
     (block_torch, "canonical_codewords", "block plans: canonical_codewords"),
     (block_torch, "emit_tokens", "block plans: emit"),
     (device_pipeline, "emit_window_from_plan", "host splice"),
+    # Inside the dynamic costs of both stages and the mask search; not
+    # part of the wall's sum.
+    (entropy_torch, "rle_histogram_masks", "(in split and plans) rle_stats histograms"),
+    (entropy_torch, "rle_bits_masks", "(in split and plans) rle_stats bits"),
 ]
 
 
