@@ -30,7 +30,16 @@ compresses every case of zultra_tpu_torch/smoke_golden.json in one
 shot: a seeded 4 MiB mixed corpus in gzip (four 1 MiB windows in one
 device batch), then deflate, zlib at 64 KiB blocks, a preset
 dictionary, incompressible bytes and 2 MiB at 64 KiB blocks (33
-windows, three device batches). Then streams
+windows, three device batches). The planner and the splitter run as
+programs (``ops/programs.py``: a shape's first call runs eagerly, its
+second is captured into a CUDA graph and replayed, later ones replay);
+the programs phase replays each one captured so far against an eager
+call of its function on the same inputs (every output equal, no sync
+inside the replay), checks that the gzip run that captured launched what
+its eager first run launched and captured the programs of that run's
+shapes and no other, and that a replaying gzip run launched the same, and
+prints each program's launches, capture and replay ms, the graph pool's
+bytes and the number of graphs. Then streams
 the gzip and the 33-window cases through ``Stream`` in 16 KiB chunks, and
 runs the CLI (``-c``, ``-cbench``, ``-quicktest``). Then the paths of many
 windows, devices and processes: every window of the zlib case planned
@@ -204,6 +213,7 @@ def main() -> int:
         matchlen_cuda,
         mk_cuda,
         prefix_cuda,
+        programs,
         reset_launch_counts,
         rle_cuda,
         split_torch,
@@ -307,7 +317,7 @@ def main() -> int:
 
     real_run_dp = block_torch.run_dp
     buckets = {}  # n_pad -> the planner's DP arguments of its first pass
-    real_core, real_emit = block_torch.plan_block_core, block_torch.emit_tokens
+    real_token_hist, real_emit = block_torch.token_hist, block_torch.emit_tokens
     emitted = {}  # the first planner bucket's lane lengths, emission arguments and result
     # The scans' arguments of the run, by shape: the sweep's histograms, the
     # RLE statistics' calls (mode, lanes, masks), the splitter's tokens.
@@ -316,48 +326,65 @@ def main() -> int:
     real_prefix = split_torch.prefix_tables
     scan_args = {"rle_sweep": {}, "rle_stats": {}, "prefix_tables": {}}
 
+    # The planner and the splitter are programs (ops/programs.py): the
+    # first call of each shape runs eagerly, the second is captured into a
+    # CUDA graph. The wrappers record on that eager call alone: a
+    # capture's tensors hold nothing until a replay, and a copy made inside
+    # a capture would join the graph. They wrap functions the programs
+    # call, never a program's own function, whose identity keys it.
+    def record(table, key, make):
+        if key not in table and not torch.cuda.is_current_stream_capturing():
+            table[key] = make()
+
     def recording_sweep(counts):
-        scan_args["rle_sweep"].setdefault(tuple(counts.shape), (counts.clone(),))
+        record(scan_args["rle_sweep"], tuple(counts.shape), lambda: (counts.clone(),))
         return real_sweep(counts)
 
     def recording_hist(lens, n_def, masks):
-        scan_args["rle_stats"].setdefault(("histogram", lens.shape[0], len(masks)),
-                                          (lens.clone(), n_def.clone(), tuple(masks)))
+        record(scan_args["rle_stats"], ("histogram", lens.shape[0], len(masks)),
+               lambda: (lens.clone(), n_def.clone(), tuple(masks)))
         return real_hist(lens, n_def, masks)
 
     def recording_bits(lens, n_def, te, masks):
-        scan_args["rle_stats"].setdefault(("bits", lens.shape[0], len(masks)),
-                                          (lens.clone(), n_def.clone(), te.clone(), tuple(masks)))
+        record(scan_args["rle_stats"], ("bits", lens.shape[0], len(masks)),
+               lambda: (lens.clone(), n_def.clone(), te.clone(), tuple(masks)))
         return real_bits(lens, n_def, te, masks)
 
     def recording_prefix(*args):
-        scan_args["prefix_tables"].setdefault(tuple(args[0].shape), tuple(a.clone() for a in args))
+        record(scan_args["prefix_tables"], tuple(args[0].shape),
+               lambda: tuple(a.clone() for a in args))
         return real_prefix(*args)
 
     def recording_run_dp(*args):
-        buckets.setdefault(args[2].shape[1], args)
+        record(buckets, args[2].shape[1], lambda: args)
         return real_run_dp(*args)
 
-    def recording_core(window, mlens, moffs, length, greedy_tok=None):
-        emitted.setdefault("length", length.clone())
-        return real_core(window, mlens, moffs, length, greedy_tok)
+    def recording_token_hist(window, lens, offs, length, is_tok=None):
+        record(emitted, "length", length.clone)  # the planner's first call: its lane lengths
+        return real_token_hist(window, lens, offs, length, is_tok)
 
     def recording_emit(*args):
         out = real_emit(*args)
-        emitted.setdefault("args", args)
-        emitted.setdefault("out", out)
+        record(emitted, "args", lambda: args)
+        record(emitted, "out", lambda: out)
         return out
 
     block_torch.run_dp = recording_run_dp
-    block_torch.plan_block_core, block_torch.emit_tokens = recording_core, recording_emit
+    block_torch.token_hist, block_torch.emit_tokens = recording_token_hist, recording_emit
     block_torch.optimize_for_rle = recording_sweep
     entropy_torch.rle_histogram_masks, entropy_torch.rle_bits_masks = recording_hist, recording_bits
     split_torch.prefix_tables = recording_prefix
     try:
-        compress_device(data, 2, device=dev)  # also the warm-up of the library and caches
+        # Also the warm-up of the library and caches, and the first call of
+        # each of the gzip run's programs: eager.
+        seen_before = set(programs.device_programs(dev).seen)
+        reset_launch_counts()
+        compress_device(data, 2, device=dev)
+        eager_counts = launch_counts()
+        gzip_keys = set(programs.device_programs(dev).seen) - seen_before
     finally:
         block_torch.run_dp = real_run_dp
-        block_torch.plan_block_core, block_torch.emit_tokens = real_core, real_emit
+        block_torch.token_hist, block_torch.emit_tokens = real_token_hist, real_emit
         block_torch.optimize_for_rle = real_sweep
         entropy_torch.rle_histogram_masks, entropy_torch.rle_bits_masks = real_hist, real_bits
         split_torch.prefix_tables = real_prefix
@@ -744,21 +771,55 @@ def main() -> int:
             print(f"one-shot gzip {len(d)} B -> {len(out)} B, equal to the golden digest, "
                   f"decodes; port {len(d) / 1e6 / secs:.3f} MB/s ({secs:.2f} s) on {smi}; "
                   f"launches {got_counts}")
+            # The second gzip run captured the programs of the shapes the
+            # first met, and no other, and launched what the first launched.
+            if counts != eager_counts:
+                raise SystemExit(f"programs: the capturing gzip run launched {counts}, the "
+                                 f"eager first run {eager_counts}")
+            gzip_programs = programs.captured(dev)
+            if {p["key"] for p in gzip_programs} != gzip_keys:
+                raise SystemExit("programs: the second gzip run did not capture the shapes of "
+                                 "the first, or captured others")
+            gzip_pool = programs.pool_bytes(dev)
         else:
             print(f"{name}: {len(d)} B -> {len(out)} B, equal to the golden digest, decodes "
                   f"({secs:.2f} s); launches {got_counts}")
+
+    # -- the programs: the planner and the splitter as CUDA graphs ---------
+    # Every program captured so far (the gzip run's, then those of the
+    # other cases that met a shape twice), replayed on the inputs of its last call with
+    # set_sync_debug_mode("error") around the replay, against an eager call
+    # of its function on the same inputs: every output equal.
+    rows = programs.replay_against_eager(dev)
+    for r in rows:
+        if r["max_abs_err"] != 0:
+            raise SystemExit(f"programs: {r['text']} replays unlike its eager call "
+                             f"(max abs err {r['max_abs_err']})")
+        print(f"program {r['text']}{' (gzip run)' if r['key'] in gzip_keys else ''}: replay "
+              f"equal to the eager call (max abs err 0), no sync in the replay; launches a "
+              f"replay {r['launches']}; capture {r['capture_ms']:.1f} ms, replay "
+              f"{r['replay_ms']:.4f} ms, eager {r['eager_ms']:.4f} ms (events)")
+    print(f"programs: the gzip run captured {len(gzip_programs)} graphs, pool {gzip_pool} B; "
+          f"{len(rows)} graphs after every golden case, pool {programs.pool_bytes(dev)} B, "
+          f"peak reserved {torch.cuda.max_memory_reserved()} B; the capturing gzip run's "
+          f"launches equal the eager first run's ({eager_counts}); on {smi}")
 
     # -- the streaming push API: Stream fed in the CLI's 16 KiB chunks ----
     # In turns with the one-shot path: one-shot (above), stream, stream,
     # one-shot, so that a drift of the card or host over the run falls
     # on both sides.
     by_name = {case["name"]: case for case in golden}
+    replayed = {}  # name -> seconds of a one-shot run that replays every program
     for name in ("gzip", "stream"):
         case = by_name[name]
         d, _ = inputs[name]
         runs = [timed_run(f"stream {name}", case, d, None, lambda: streamed(case, d))
                 for _ in range(2)]
         again = timed_run(name, case, d, None, lambda: one_shot(case, d, None))
+        if again[2] != first[name][1]:
+            raise SystemExit(f"programs: a later {name} run launched {again[2]}, its capturing "
+                             f"run {first[name][1]}")
+        replayed[name] = again[1]
         s_secs = [r[1] for r in runs]
         o_secs = [first[name][0], again[1]]
         mb = len(d) / 1e6
@@ -821,38 +882,52 @@ def main() -> int:
             frame.init_checksum(flags), corpus_c[base:], flags), len(d))
         return bytes(out)
 
+    # Each of these phases runs three times: its first run meets the
+    # shapes of its own programs (a batch of another width) eagerly, the
+    # second captures them, the third replays them. The one-shot times
+    # beside them are replays too.
+    def thrice(label, case, d, dictionary, fn):
+        runs = [timed_run(label, case, d, dictionary, fn) for _ in range(3)]
+        return [r[1] for r in runs], runs[2][2]
+
     case = by_name["zlib"]
     d, dictionary = inputs["zlib"]
-    _, secs, got_counts = timed_run("per-window zlib", case, d, dictionary,
-                                    lambda: per_window(case, d, dictionary))
+    secs, got_counts = thrice("per-window zlib", case, d, dictionary,
+                             lambda: per_window(case, d, dictionary))
+    for _ in range(2):  # the one-shot's shapes met above: a capturing run, then a replay
+        _, one, _ = timed_run("zlib", case, d, dictionary, lambda: one_shot(case, d, dictionary))
     n_windows = -(-len(d) // clamp_block_size(case["block_size"]))
     print(f"per-window zlib: {n_windows} windows of {case['block_size']} B each planned alone "
           f"(begin_window + emit_window), equal to the golden digest, decodes; "
-          f"{len(d) / 1e6 / secs:.3f} MB/s ({secs:.2f} s) against one-shot "
-          f"{len(d) / 1e6 / first['zlib'][0]:.3f} MB/s ({first['zlib'][0]:.2f} s), ratio "
-          f"{first['zlib'][0] / secs:.3f}, on {smi}; launches {got_counts}")
+          f"{len(d) / 1e6 / secs[2]:.3f} MB/s ({secs[2]:.2f} s; first runs {secs[0]:.2f}, "
+          f"{secs[1]:.2f} s) "
+          f"against one-shot {len(d) / 1e6 / one:.3f} MB/s ({one:.2f} s; its first run "
+          f"{first['zlib'][0]:.2f} s), ratio {one / secs[2]:.3f}, on {smi}; launches {got_counts}")
 
     case = by_name["stream"]
     d, _ = inputs["stream"]
     for wpb in (2, 5):
-        _, secs, got_counts = timed_run(
+        secs, got_counts = thrice(
             f"windows_per_batch {wpb}", case, d, None,
             lambda: compress_device(d, case["flags"], case["block_size"], windows_per_batch=wpb,
                                     device=dev))
         print(f"windows_per_batch {wpb}: stream case ({len(d)} B, 33 windows) equal to the golden "
-              f"digest, decodes; {secs:.2f} s ({len(d) / 1e6 / secs:.3f} MB/s; 16 a batch: "
-              f"{first['stream'][0]:.2f} s) on {smi}; launches {got_counts}")
+              f"digest, decodes; {secs[2]:.2f} s ({len(d) / 1e6 / secs[2]:.3f} MB/s; first runs "
+              f"{secs[0]:.2f}, {secs[1]:.2f} s; 16 a batch: {replayed['stream']:.2f} s) on {smi}; "
+              f"launches "
+              f"{got_counts}")
 
     case = by_name["gzip"]
     d, _ = inputs["gzip"]
     n_cards = torch.cuda.device_count()
     devices = [f"cuda:{i}" for i in range(n_cards)] if n_cards > 1 else ["cuda:0", "cuda:0"]
-    _, secs, got_counts = timed_run(
+    secs, got_counts = thrice(
         "devices", case, d, None,
         lambda: compress_device(d, case["flags"], case["block_size"], devices=devices))
-    print(f"devices {devices}: gzip case equal to the golden digest, decodes; {secs:.2f} s "
-          f"({len(d) / 1e6 / secs:.3f} MB/s; one device {first['gzip'][0]:.2f} s) on {smi}; "
-          f"launches {got_counts}")
+    print(f"devices {devices}: gzip case equal to the golden digest, decodes; {secs[2]:.2f} s "
+          f"({len(d) / 1e6 / secs[2]:.3f} MB/s; first runs {secs[0]:.2f}, {secs[1]:.2f} s; one "
+          f"device "
+          f"{replayed['gzip']:.2f} s) on {smi}; launches {got_counts}")
 
     t0 = time.perf_counter()
     out, rank_stats = multihost.run_windows_distributed(

@@ -6,7 +6,10 @@ Skips without CUDA; run on the card with
 ``python -m pytest tests/test_torch_cuda.py``."""
 
 import collections
+import hashlib
+import json
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,8 +19,8 @@ from torch.profiler import ProfilerActivity, profile
 
 import zultra_tpu as zt
 from zultra_tpu import engine
-from zultra_tpu_torch import FINALIZE, Stream, compress, ops
-from zultra_tpu_torch.corpus import lz_data, mixed_corpus
+from zultra_tpu_torch import FINALIZE, DeviceWindowEngine, Stream, compress, ops
+from zultra_tpu_torch.corpus import case_inputs, lz_data, mixed_corpus
 from zultra_tpu_torch.ops import (
     block_torch,
     chain_cuda,
@@ -26,6 +29,7 @@ from zultra_tpu_torch.ops import (
     matchlen_cuda,
     mk_cuda,
     prefix_cuda,
+    programs,
     rle_cuda,
     split_torch,
     walk_cuda,
@@ -663,3 +667,165 @@ def test_write_tokens_on_the_card(cuda):
     got = write_tokens(data, best, 5000, len(data), lit, off, device=cuda)
     assert ops.launch_counts()["chain"] == 1
     assert got == write_tokens(data, best, 5000, len(data), lit, off, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The planner and the splitter as programs (ops/programs.py)
+# ---------------------------------------------------------------------------
+
+GOLDEN = Path(__file__).resolve().parent.parent / "zultra_tpu_torch" / "smoke_golden.json"
+
+
+def _golden_cases() -> dict:
+    return {c["name"]: c for c in json.loads(GOLDEN.read_text())["cases"]}
+
+
+def _assert_golden(label, case, out):
+    assert (len(out), hashlib.sha256(out).hexdigest()) == (case["out_len"], case["out_sha256"]), \
+        label
+
+
+def _per_window(case, data, dictionary, device):
+    """Every window planned alone (``DeviceWindowEngine.begin_window``) and
+    emitted in stream order, framed as compress_device frames it."""
+    from zultra_tpu_torch import frame
+    from zultra_tpu_torch.stream import clamp_block_size, memory_bound
+
+    eng = DeviceWindowEngine(device)
+    mbs = clamp_block_size(case["block_size"])
+    flags = case["flags"]
+    corpus = np.frombuffer((dictionary or b"") + data, np.uint8)
+    base = len(dictionary or b"")
+    out = bytearray(frame.encode_header(flags, dictionary))
+    buf = bytearray(memory_bound(mbs, flags, mbs))
+    bits_data = bits_count = 0
+    spans = [(base + lo, base + min(lo + mbs, len(data))) for lo in range(0, len(data), mbs)]
+    for i, (lo, hi) in enumerate(spans):
+        prev = min(32768, lo)
+        handle = eng.begin_window(corpus[lo - prev : hi], prev, hi - lo)
+        n, bits_data, bits_count = eng.emit_window(handle, i + 1 == len(spans), buf, bits_data,
+                                                   bits_count)
+        out += buf[:n]
+    out += frame.encode_footer(flags, frame.update_checksum(frame.init_checksum(flags),
+                                                            corpus[base:], flags), len(data))
+    return bytes(out)
+
+
+def test_programs_replay_equals_eager_on_the_gzip_case(cuda):
+    """The gzip case's planner and splitter programs: each replay (under
+    set_sync_debug_mode("error")) equals an eager call of its function on
+    the same inputs, every output. The first run meets every shape (eager,
+    unless an earlier test met it), the second captures, the third
+    captures nothing new; all three launch the same."""
+    case = _golden_cases()["gzip"]
+    data, _ = case_inputs(case)
+    counts, keys = [], []
+    for run in ("first", "second", "third"):
+        ops.reset_launch_counts()
+        _assert_golden(f"{run} run", case, compress(data, case["flags"], device=cuda))
+        counts.append(ops.launch_counts())
+        keys.append({p["key"] for p in programs.captured(cuda)})
+    assert counts[0] == counts[1] == counts[2]
+    assert keys[1] == keys[2]
+    rows = programs.replay_against_eager(cuda)
+    assert {"plan_block_core", "split_program"} <= {r["key"][0].__name__ for r in rows}
+    assert all(r["launches"] for r in rows), rows
+    assert [r["key"] for r in rows if r["max_abs_err"]] == []
+
+
+def test_program_calls_make_no_host_sync(cuda):
+    """A planner bucket and a splitter batch already captured: the lane
+    gather, the input copies, replays and output copies under
+    set_sync_debug_mode("error")."""
+    corpus = _corpus(70_000)
+    mbs = 32768
+    spans = [(0, mbs), (mbs, 2 * mbs)]
+    lens, offs = match_tables_device_stacked(corpus, spans, mbs, cuda)
+    win = np.zeros((2, HALO + mbs), np.uint8)
+    win[0, HALO:] = corpus[:mbs]
+    win[1] = corpus[: 2 * mbs]
+    win = torch.from_numpy(win).to(cuda)
+    n = split_torch.split_bucket(HALO + mbs)
+    pad = (0, n - HALO - mbs)
+    split_args = (torch.nn.functional.pad(win, pad), torch.nn.functional.pad(lens[:, :, 0], pad),
+                  torch.nn.functional.pad(offs[:, :, 0], pad), HALO,
+                  torch.full((2,), HALO + mbs, dtype=torch.int32, device=cuda), 32768, 64)
+    tok = split_torch.split_batch(*split_args)[2][:, : HALO + mbs]
+    meta = torch.tensor([[0, 1, 1], [HALO, HALO, HALO + 9000], [9000, 9000, 20000]],
+                        dtype=torch.int64, device=cuda)
+    meta = torch.cat([meta, torch.zeros((3, 1), dtype=torch.int64, device=cuda)], dim=1)
+    split_torch.split_batch(*split_args)  # the second call: captured
+    bucket = block_torch.slice_bucket(win, lens, offs, meta, tok, 32768)
+    want = programs.run(block_torch.plan_block_core, *bucket)  # eager
+    programs.run(block_torch.plan_block_core, *bucket)  # captured
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_split = split_torch.split_batch(*split_args)
+        bucket = block_torch.slice_bucket(win, lens, offs, meta, tok, 32768)
+        got = programs.run(block_torch.plan_block_core, *bucket)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    assert torch.equal(got_split[2][:, : HALO + mbs], tok)
+
+
+@pytest.mark.parametrize("path", ["one-shot", "Stream", "per window", "devices"])
+def test_every_golden_digest_through_the_programs(cuda, path):
+    """Every case of smoke_golden.json through the graph path, byte for byte
+    the native engine's output (its recorded digest)."""
+    for name, case in _golden_cases().items():
+        data, dictionary = case_inputs(case)
+        if path == "one-shot":
+            out = compress(data, case["flags"], case["block_size"], dictionary, device=cuda)
+        elif path == "Stream":
+            stream = Stream(case["flags"], case["block_size"], device=cuda)
+            if dictionary:
+                stream.set_dictionary(dictionary)
+            out = b"".join(stream.compress(data[i : i + 16384])
+                           for i in range(0, len(data), 16384))
+            out += stream.compress(b"", FINALIZE)
+        elif path == "per window":
+            out = _per_window(case, data, dictionary, cuda)
+        else:
+            from zultra_tpu_torch import compress_device
+
+            out = compress_device(data, case["flags"], case["block_size"], dictionary,
+                                  devices=["cuda:0", "cuda:0"])
+        _assert_golden(f"{name} {path}", case, out)
+
+
+def test_padded_zero_length_lanes_on_the_card(cuda):
+    """A bucket of 3 lanes planned at 4 on the card equals its CPU plans;
+    lanes of length 0 go through every kernel of the planner (DP, chain, MK,
+    Kraft, the RLE sweep and statistics) and plan what the plain forms
+    plan."""
+    corpus = _corpus(70_000)
+    mbs = 32768
+    spans = [(0, mbs), (mbs, 2 * mbs)]
+    lens, offs = match_tables_device_stacked(corpus, spans, mbs, "cpu")
+    win = np.zeros((2, HALO + mbs), np.uint8)
+    win[0, HALO:] = corpus[:mbs]
+    win[1] = corpus[: 2 * mbs]
+    win = torch.from_numpy(win)
+    lanes = [(0, HALO, 3000), (1, HALO + 100, 4000), (1, HALO + 5000, 2500)]
+    got = block_torch.plan_blocks_device_multi(win.to(cuda), lens.to(cuda), offs.to(cuda), lanes)
+    want = block_torch.plan_blocks_device_multi(win, lens, offs, lanes)
+    for p, q in zip(got, want):
+        for key in q:
+            np.testing.assert_array_equal(np.asarray(p[key]), np.asarray(q[key]), err_msg=key)
+
+    n = block_torch.TILE
+    length = torch.tensor([0, 3000, 0, 0], dtype=torch.int32)
+    args = (win[:, HALO : HALO + n].repeat(2, 1), lens[:, HALO : HALO + n].repeat(2, 1, 1),
+            offs[:, HALO : HALO + n].repeat(2, 1, 1), length)
+    ops.reset_launch_counts()
+    out = block_torch.plan_block_core(*[a.to(cuda) for a in args])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("dp", "chain", "mk12", "kraft", "rle_sweep",
+                                        "rle_stats")), counts
+    plain = block_torch.plan_block_core(*args)
+    for key in plain:
+        assert torch.equal(out[key].cpu(), plain[key]), key

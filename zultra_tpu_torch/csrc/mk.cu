@@ -436,16 +436,24 @@ __global__ void __launch_bounds__(LANES)
   }
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lanes_smem(MAX_S));
-  done = err == cudaSuccess;
+// The thread-per-lane kernel's shared memory limit, raised once per device
+// (an attribute is a device's, and the host call would otherwise cost
+// every launch; the eager run before a graph capture sets it, so no
+// capture meets the call).
+constexpr int MAX_DEVICES = 64;
+bool mk12_smem_set[MAX_DEVICES];
+
+cudaError_t allow_lanes_smem() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (mk12_smem_set[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(mk12_lanes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             lanes_smem(MAX_S));
+  if (err == cudaSuccess) mk12_smem_set[dev] = true;
   return err;
 }
-
-bool mk12_smem_set = false;
 
 }  // namespace
 
@@ -458,7 +466,7 @@ extern "C" int zt_mk12(const void* a0, const void* n_used, void* out, int B, int
       mk12_warp_kernel<<<B, LANES, 0, st>>>((const int32_t*)a0, (const int32_t*)n_used,
                                             (int32_t*)out, S);
     } else {
-      const cudaError_t err = allow_smem(mk12_lanes_kernel, mk12_smem_set);
+      const cudaError_t err = allow_lanes_smem();
       if (err != cudaSuccess) return (int)err;
       mk12_lanes_kernel<<<(B + LANES - 1) / LANES, LANES, lanes_smem(S), st>>>(
           (const int32_t*)a0, (const int32_t*)n_used, (int32_t*)out, B, S);

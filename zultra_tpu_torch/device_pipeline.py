@@ -33,7 +33,7 @@ from .constants import (
     NVALIDOFFSETSYMS,
 )
 from .huffman import HuffmanEncoder, write_var_lengths
-from .ops.block_torch import plan_blocks_device_multi
+from .ops.block_torch import plan_blocks_device_multi, to_device, to_host
 from .ops.matchfinder_torch import HALO, match_table, match_tables_device_stacked
 from .ops.split_torch import input_cap, split_batch, split_bucket, trig_cap_for
 from .stream import StreamError, clamp_block_size, memory_bound
@@ -187,26 +187,26 @@ def begin_windows_batched(corpus: np.ndarray, spans, mbs: int, device) -> list:
         prev = min(HISTORY_SIZE, w_lo)
         prevs.append(prev)
         win_stack[w, HALO - prev : HALO + (w_hi - w_lo)] = corpus[w_lo - prev : w_hi]
-    win_dev = torch.from_numpy(win_stack).to(device)
+    win_dev = to_device(win_stack, device)
 
     n_pad = split_bucket(n_lane)
     tail = n_pad - n_lane
     win_p = torch.nn.functional.pad(win_dev, (0, tail))
     rl = torch.nn.functional.pad(lens_st[:, :, 0], (0, tail))
     ro = torch.nn.functional.pad(offs_st[:, :, 0], (0, tail))
-    n_real = torch.tensor([HALO + (hi - lo) for lo, hi in spans], dtype=torch.int32,
-                          device=device)
+    n_real = to_device(np.array([HALO + (hi - lo) for lo, hi in spans], np.int32), device)
     cap = input_cap(mbs)
     splits, n_splits, tok_marks, ovf = split_batch(win_p, rl, ro, HALO, n_real, cap,
                                                    trig_cap_for(cap))
-    if bool(ovf.any()):
+    # The batch's one wait before the plans: the split points and the
+    # overflow flags come back together.
+    splits, n_splits, ovf = to_host(splits, n_splits, ovf)
+    if ovf.any():
         # Exact retry of the overflowing lanes with every candidate slot
         # evaluated.
-        full = split_batch(win_p, rl, ro, HALO, n_real, cap, 0)
-        splits = torch.where(ovf[:, None], full[0], splits)
-        n_splits = torch.where(ovf, full[1], n_splits)
-    splits = splits.cpu().numpy()
-    n_splits = n_splits.cpu().numpy()
+        full_splits, full_n = to_host(*split_batch(win_p, rl, ro, HALO, n_real, cap, 0)[:2])
+        splits = np.where(ovf[:, None], full_splits, splits)
+        n_splits = np.where(ovf, full_n, n_splits)
 
     lanes = []
     spans_per_window = []

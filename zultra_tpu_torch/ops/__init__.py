@@ -8,21 +8,49 @@ The exports are the counterparts of zultra_tpu/ops/__init__.py:17-30
 (``optimize_matches_jax``, the JAX scan DP kept for cross-checks, has
 none: ROADMAP A8)."""
 
+import contextlib
 import threading
 
 # Kernel launches since the last reset, one count a kernel. Every wrapper
 # adds one through count_launch where it launches its kernel, and nowhere
 # else; the lock keeps the counts whole when several host threads launch
-# (``compress_device(devices=...)``).
+# (``compress_device(devices=...)``). A launch made while a CUDA graph is
+# captured does not run then: it goes to the capture's own counts, which
+# ``programs`` adds back (``add_launches``) on every replay, so a count is
+# always of launches the device executed.
 KERNEL_NAMES = ("walk", "dp", "chain", "mk12", "kraft", "matchlen", "hist",
                 "rle_sweep", "rle_stats", "prefix_tables")
 _counts = dict.fromkeys(KERNEL_NAMES, 0)
 _counts_lock = threading.Lock()
+_capturing = threading.local()  # .counts: the counts of this thread's capture, or None
 
 
 def count_launch(name: str) -> None:
+    captured = getattr(_capturing, "counts", None)
+    if captured is not None:
+        captured[name] += 1
+        return
     with _counts_lock:
         _counts[name] += 1
+
+
+def add_launches(counts: dict) -> None:
+    """Add the launches of a replayed graph, {kernel name: launches}."""
+    with _counts_lock:
+        for name, n in counts.items():
+            _counts[name] += n
+
+
+@contextlib.contextmanager
+def capturing_launches():
+    """Within the block, this thread's launches go to the yielded counts
+    (a capture's), not to the totals."""
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    _capturing.counts = counts
+    try:
+        yield counts
+    finally:
+        _capturing.counts = None
 
 
 def launch_counts() -> dict:

@@ -10,7 +10,9 @@ Port of zultra_tpu.ops.block_jax (``_plan_block_core``,
 mesh). Reference semantics: zultra src/blockdeflate.c:827-997 and the
 stream-level cost choice src/libzultra.c:317-324. Lanes are block-local
 (position 0 = block start); bytes past a lane's length are the window's
-next bytes and every stage masks them.
+next bytes and every stage masks them. A bucket of lanes is planned by
+one program (``ops/programs.py``): on the card, one CUDA graph a bucket
+shape, as ``jax.jit`` makes ``_plan_block_core`` one program a shape.
 """
 
 from __future__ import annotations
@@ -24,13 +26,10 @@ from ..constants import (
     MIN_OFFSET,
     NEODMARKERSYM,
     NLITERALSYMS,
-    NMATCHES_PER_OFFSET,
     NOFFSETSYMS,
-    static_literal_code_lengths,
-    static_offset_code_lengths,
 )
-from ..huffman import HuffmanEncoder
 
+from . import programs
 from .chain_cuda import chain_marks
 from .dp_cuda import run_dp
 from .entropy_torch import (
@@ -48,32 +47,13 @@ from .symbol_map import (
     offset_sym_extra_base,
     select_by_symbol,
 )
+from .tables import device_tables
 
 CONVERGENCE_PASSES = 3
 TILE = 4096  # smallest lane bucket
 MERGE_CAP = 1 << 15  # buckets up to this size merge into one batch
 I32 = torch.int32
 I64 = torch.int64
-
-
-def _static_tables():
-    """RFC 1951 fixed lengths and bit-reversed codewords, from the host
-    Huffman encoder."""
-    lit = HuffmanEncoder(NLITERALSYMS, 15, 0)
-    lit.code_length[:NLITERALSYMS] = [int(x) for x in static_literal_code_lengths()]
-    lit.build_static_codewords()
-    off = HuffmanEncoder(NOFFSETSYMS, 15, 0)
-    off.code_length[:NOFFSETSYMS] = [int(x) for x in static_offset_code_lengths()]
-    off.build_static_codewords()
-    return (
-        np.array(lit.code_length[:NLITERALSYMS], np.int32),
-        np.array(lit.code_word[:NLITERALSYMS], np.int32),
-        np.array(off.code_length[:NOFFSETSYMS], np.int32),
-        np.array(off.code_word[:NOFFSETSYMS], np.int32),
-    )
-
-
-_STATIC = _static_tables()
 
 
 def token_starts(step: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
@@ -200,8 +180,9 @@ def plan_block_core(window, mlens, moffs, length, greedy_tok=None):
     Returns a dict of plan fields and the emitted words."""
     B, n = window.shape
     dev = window.device
-    s_lit_len, s_lit_cw, s_off_len, s_off_cw = (torch.as_tensor(t, device=dev)[None, :]
-                                                for t in _STATIC)
+    t = device_tables(dev)
+    s_lit_len, s_lit_cw = t.static_lit_len[None, :], t.static_lit_cw[None, :]
+    s_off_len, s_off_cw = t.static_off_len[None, :], t.static_off_cw[None, :]
     idx = torch.arange(n, dtype=I32, device=dev)[None, :]
 
     # Greedy entropy over match-table row 0 -> static/dynamic choice.
@@ -264,6 +245,26 @@ def plan_block_core(window, mlens, moffs, length, greedy_tok=None):
     }
 
 
+def to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``. To a CUDA device it goes by one pinned,
+    non-blocking copy: a pageable one makes the host wait until the
+    stream has drained."""
+    dev = torch.device(device)
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
+
+def to_host(*tensors: torch.Tensor) -> list:
+    """Tensors as numpy arrays: non-blocking copies of all of them, then
+    one wait on the current stream, where one ``.cpu()`` each would wait
+    once each."""
+    host = [t.to("cpu", non_blocking=True) for t in tensors]
+    on_card = [t.device for t in tensors if t.is_cuda]
+    if on_card:
+        torch.cuda.current_stream(on_card[0]).synchronize()
+    return [h.numpy() for h in host]
+
+
 def lane_bucket(n: int) -> int:
     size = TILE
     while size < n:
@@ -284,9 +285,9 @@ def merge_small_buckets(buckets: dict) -> None:
 
 
 def collect_plans(out: dict, idxs, plans) -> None:
-    """One bulk device->host copy per bucket, split into per-block plan
-    dicts with the JAX package's numpy dtypes."""
-    host = {k: v.cpu().numpy() for k, v in out.items()}
+    """One device->host copy per bucket (``to_host``), split into
+    per-block plan dicts with the JAX package's numpy dtypes."""
+    host = dict(zip(out, to_host(*out.values())))
     total_bits = host["total_bits"]
     for b, i in enumerate(idxs):
         n_words = (int(total_bits[b]) + 31) // 32
@@ -303,40 +304,60 @@ def collect_plans(out: dict, idxs, plans) -> None:
         }
 
 
-def plan_blocks_device_multi(win_stack, lens_stack, offs_stack, lanes, tok_stack=None):
-    """Plans for blocks drawn from a batch of window lanes: win_stack
-    (W, n_lane) uint8, lens/offs_stack (W, n_lane, 8) int32, lanes a
-    list of (window_index, start_in_lane, length), tok_stack (W, n_lane)
-    bool or None. Blocks bucket by padded size across windows. Returns
-    plans in ``lanes`` order."""
-    if not lanes:
-        return []
-    dev = win_stack.device
+def padded_lanes(n: int) -> int:
+    """The lane count a bucket of ``n`` lanes is planned at: the next power
+    of two, as block_jax pads it (:731-733), so that a few program shapes
+    serve every batch. A padded lane has length 0 and its plan is dropped."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def plan_buckets(lanes) -> list:
+    """The planner's batches for ``lanes`` [(window, start, length), ...]:
+    [(n_pad, lane indices)] by ascending n_pad, every bucket up to
+    MERGE_CAP merged into one."""
     buckets: dict[int, list[int]] = {}
     for i, (_, _, ln) in enumerate(lanes):
         buckets.setdefault(lane_bucket(ln), []).append(i)
     merge_small_buckets(buckets)
-    pad = max(buckets)
-    W = win_stack.shape[0]
-    win_ext = torch.cat([win_stack, win_stack.new_zeros((W, pad))], dim=1)
-    z = lens_stack.new_zeros((W, pad, NMATCHES_PER_OFFSET))
-    lens_ext = torch.cat([lens_stack, z], dim=1)
-    offs_ext = torch.cat([offs_stack, z], dim=1)
-    tok_ext = None
-    if tok_stack is not None:
-        tok_ext = torch.cat([tok_stack, tok_stack.new_zeros((W, pad))], dim=1)
+    return sorted(buckets.items())
 
+
+def slice_bucket(win_stack, lens_stack, offs_stack, meta, tok_stack, n_pad: int):
+    """One bucket's lanes cut out of the window stacks, ``n_pad`` positions
+    each (block_jax's ``_slice_blocks_multi``, :646, kept apart from the
+    planner's program as there). ``meta`` (3, B) int64 holds each lane's
+    window index, start and length. A lane's columns past the stacks'
+    width read zeros, as block_jax's extended stacks give them. Returns
+    (win, mlens, moffs, length, greedy marks or None)."""
+    n_lane = win_stack.shape[1]
+    widx, starts, length = meta[0], meta[1], meta[2].to(I32)
+    cols = starts[:, None] + torch.arange(n_pad, dtype=I64, device=win_stack.device)[None, :]
+    inside = cols < n_lane
+    cols = torch.clamp(cols, max=n_lane - 1)
+    rows = widx[:, None]
+    win = torch.where(inside, win_stack[rows, cols], 0)
+    mlens = torch.where(inside[:, :, None], lens_stack[rows, cols], 0)
+    moffs = torch.where(inside[:, :, None], offs_stack[rows, cols], 0)
+    gtok = None if tok_stack is None else tok_stack[rows, cols] & inside
+    return win, mlens, moffs, length, gtok
+
+
+def plan_blocks_device_multi(win_stack, lens_stack, offs_stack, lanes, tok_stack=None):
+    """Plans for blocks drawn from a batch of window lanes: win_stack
+    (W, n_lane) uint8, lens/offs_stack (W, n_lane, 8) int32, lanes a
+    list of (window_index, start_in_lane, length), tok_stack (W, n_lane)
+    bool or None. Blocks bucket by padded size across windows; each
+    bucket, padded to a power of two lanes, is cut out of the stacks
+    (``slice_bucket``) and planned by the ``plan_block_core`` program (a
+    graph replay on the card, keyed on the bucket's shape alone). Returns
+    plans in ``lanes`` order."""
     plans: list = [None] * len(lanes)
-    for n_pad, idxs in sorted(buckets.items()):
-        widx = torch.tensor([lanes[i][0] for i in idxs], dtype=I64, device=dev)
-        starts = torch.tensor([lanes[i][1] for i in idxs], dtype=I64, device=dev)
-        length = torch.tensor([lanes[i][2] for i in idxs], dtype=I32, device=dev)
-        cols = starts[:, None] + torch.arange(n_pad, dtype=I64, device=dev)[None, :]
-        rows = widx[:, None]
-        gtok = None if tok_ext is None else tok_ext[rows, cols]
-        out = plan_block_core(win_ext[rows, cols], lens_ext[rows, cols], offs_ext[rows, cols],
-                              length, gtok)
-        collect_plans(out, idxs, plans)
+    for n_pad, idxs in plan_buckets(lanes):
+        meta = np.zeros((3, padded_lanes(len(idxs))), np.int64)  # padded: window 0, start 0
+        meta[:, : len(idxs)] = np.array([lanes[i] for i in idxs], np.int64).T
+        bucket = slice_bucket(win_stack, lens_stack, offs_stack,
+                              to_device(meta, win_stack.device), tok_stack, n_pad)
+        collect_plans(programs.run(plan_block_core, *bucket), idxs, plans)
     return plans
 
 

@@ -41,16 +41,9 @@ sizes up to 2 MiB) run as one sequential pass from their length.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..constants import (
-    LEAVE_ALONE_MATCH_SIZE,
-    MATCHLEN_EXTRA_BITS,
-    MATCHLEN_SYMBOL,
-    MIN_MATCH_SIZE,
-    NMATCHES_PER_OFFSET,
-)
+from ..constants import LEAVE_ALONE_MATCH_SIZE, MIN_MATCH_SIZE, NMATCHES_PER_OFFSET
 
 from .. import _build
 from . import count_launch
@@ -60,6 +53,7 @@ from .symbol_map import (
     offset_sym_extra_base,
     select_by_symbol,
 )
+from .tables import device_tables
 
 INF = 1 << 26
 INF16 = 0x7FFF
@@ -83,10 +77,8 @@ ST_NONE, ST_EXACT, ST_ANCHORED, ST_SPECULATED, ST_RERUN, ST_SEQUENTIAL = range(6
 def varlen_tables(lit_lens: torch.Tensor) -> torch.Tensor:
     """Length-symbol bit cost by encoded length e = len - 3 (B, 256):
     lit_lens[MATCHLEN_SYMBOL[e]] + MATCHLEN_EXTRA_BITS[e]."""
-    dev = lit_lens.device
-    sym = torch.as_tensor(np.asarray(MATCHLEN_SYMBOL, np.int64), device=dev)
-    extra = torch.as_tensor(np.asarray(MATCHLEN_EXTRA_BITS, np.int32), device=dev)
-    return lit_lens[:, sym] + extra[None, :]
+    t = device_tables(lit_lens.device)
+    return lit_lens[:, t.matchlen_symbol] + t.matchlen_extra[None, :]
 
 
 def prep_lanes(ll, ol, window, mlens, moffs, length):

@@ -19,21 +19,13 @@ strict phase-1 comparisons, the <=1-used-symbol quirk) is reproduced.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..constants import (
-    CODELEN_SYM_ORDER,
-    NCODELENSYMS,
-    NLITERALSYMS,
-    NOFFSETSYMS,
-    REV_MATCHLEN_SYMBOL_BITS,
-    REV_OFFSET_SYMBOL_BITS,
-    static_literal_code_lengths,
-)
+from ..constants import NCODELENSYMS, NLITERALSYMS, NOFFSETSYMS
 
 from . import mk_cuda
 from .rle_cuda import optimize_for_rle, rle_bits_masks, rle_histogram_masks  # noqa: F401
+from .tables import MASK_ORDER, device_tables
 
 INF32 = 2**30
 I32 = torch.int32
@@ -122,9 +114,14 @@ def limited_lengths(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     repaired and the over-long lanes selected (no host sync, as
     entropy_jax.limited_lengths does on a TPU); the plain form sweeps the
     over-long lanes alone."""
+    if not lengths.is_cuda:
+        return _limited_lengths_plain(lengths, max_len)
     over = lengths.max(dim=1)[0] > max_len
-    if lengths.is_cuda:
-        return torch.where(over[:, None], _kraft_repair(lengths, max_len), lengths)
+    return torch.where(over[:, None], _kraft_repair(lengths, max_len), lengths)
+
+
+def _limited_lengths_plain(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    over = lengths.max(dim=1)[0] > max_len
     if not bool(over.any()):
         return lengths
     lanes = torch.nonzero(over)[:, 0]
@@ -214,8 +211,7 @@ def rle_bits(lens: torch.Tensor, n_def: torch.Tensor, te_lens: torch.Tensor,
 
 def raw_table_size(te_lens: torch.Tensor) -> torch.Tensor:
     """CL lengths in transmission order, trailing zeros trimmed, >= 4."""
-    order = torch.as_tensor(np.asarray(CODELEN_SYM_ORDER, dtype=np.int64), device=te_lens.device)
-    in_order = te_lens[:, order]
+    in_order = te_lens[:, device_tables(te_lens.device).codelen_order]
     posp1 = _arange(NCODELENSYMS, te_lens.device)[None, :] + 1
     last = torch.where(in_order != 0, posp1, 0).max(dim=1)[0]
     return torch.clamp(last, min=4)
@@ -233,26 +229,12 @@ def defined_count(lens: torch.Tensor, min_symbols: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _lit_extra(dev):
-    rev = np.asarray(REV_MATCHLEN_SYMBOL_BITS, dtype=np.int32)
-    extra = np.zeros(NLITERALSYMS, np.int32)
-    extra[257 : 257 + rev.shape[0]] = rev
-    # The reference's symbol-cost loops cover 0..285 only: symbols 286
-    # and 287 are not counted (src/blockdeflate.c:577-581).
-    counted = np.arange(NLITERALSYMS) < 257 + rev.shape[0]
-    return (torch.as_tensor(extra, device=dev)[None, :],
-            torch.as_tensor(counted, device=dev)[None, :],
-            torch.as_tensor(np.asarray(REV_OFFSET_SYMBOL_BITS, np.int32), device=dev)[None, :])
-
-
 def static_cost(lit_hist: torch.Tensor, off_hist: torch.Tensor) -> torch.Tensor:
     """evaluate_static_cost (reference src/blockdeflate.c:538-566)."""
-    dev = lit_hist.device
-    extra, counted, rev_off = _lit_extra(dev)
-    static_lit = torch.as_tensor(np.asarray(static_literal_code_lengths(), np.int32), device=dev)
-    lit_counted = torch.where(counted, lit_hist, 0)
-    cost = (lit_counted * (static_lit[None, :] + extra)).sum(dim=1, dtype=I32)
-    cost = cost + (off_hist * (5 + rev_off)).sum(dim=1, dtype=I32)
+    t = device_tables(lit_hist.device)
+    lit_counted = torch.where(t.lit_counted, lit_hist, 0)
+    cost = (lit_counted * (t.static_lit_len + t.lit_extra)).sum(dim=1, dtype=I32)
+    cost = cost + (off_hist * (5 + t.off_extra)).sum(dim=1, dtype=I32)
     return cost + 3
 
 
@@ -273,10 +255,10 @@ def _concat_lengths(lit_len: torch.Tensor, off_len: torch.Tensor):
 
 
 def _symbol_and_table_cost(lit_hist, off_hist, lit_len, off_len):
-    extra, counted, rev_off = _lit_extra(lit_hist.device)
-    lit_counted = torch.where(counted, lit_hist, 0)
-    cost = (lit_counted * (lit_len + extra)).sum(dim=1, dtype=I32)
-    cost = cost + (off_hist * (off_len + rev_off)).sum(dim=1, dtype=I32)
+    t = device_tables(lit_hist.device)
+    lit_counted = torch.where(t.lit_counted, lit_hist, 0)
+    cost = (lit_counted * (lit_len + t.lit_extra)).sum(dim=1, dtype=I32)
+    cost = cost + (off_hist * (off_len + t.off_extra)).sum(dim=1, dtype=I32)
     lens, _, _, n_def = _concat_lengths(lit_len, off_len)
     te_len = mk_lengths(rle_histogram_masks(lens, n_def, (7,))).contiguous()
     cost = cost + 5 + 5 + 4
@@ -295,9 +277,6 @@ def dynamic_cost(lit_hist: torch.Tensor, off_hist: torch.Tensor) -> torch.Tensor
     histograms, symbol cost + dynamic table cost + 3 header bits."""
     return _symbol_and_table_cost(lit_hist, off_hist, mk_lengths(lit_hist),
                                   mk_lengths(off_hist))
-
-
-MASK_ORDER = tuple(list(range(8)) + list(range(9, 32, 2)))
 
 
 def mask_histograms(lit_len: torch.Tensor, off_len: torch.Tensor):
@@ -322,6 +301,5 @@ def mask_search(lit_len: torch.Tensor, off_len: torch.Tensor):
     best = cost_m.min(dim=1)[0]
     mi = _arange(len(MASK_ORDER), lit_len.device)[None, :]
     midx = torch.where(cost_m == best[:, None], mi, -1).max(dim=1)[0]
-    mask_arr = torch.as_tensor(np.asarray(MASK_ORDER, np.int32), device=lit_len.device)
     cl_sel = cl_m[midx.to(I64), _arange(B, lit_len.device, I64)]
-    return mask_arr[midx.to(I64)], cl_sel, n_lit, n_off
+    return device_tables(lit_len.device).mask_order[midx.to(I64)], cl_sel, n_lit, n_off

@@ -11,8 +11,11 @@ histograms (both tables from the ``prefix_tables`` kernels of
 candidates in one batched ``entropy_torch.dynamic_cost`` call. With
 ``trig_cap`` > 0 only the first ``trig_cap`` triggers of a level are
 evaluated and a lane with more sets ``ovf``; the caller then reruns
-with ``trig_cap=0``, which is exact. ``block_split`` is the per-window
-form over a host match table (split_jax.block_split_jax, :459).
+with ``trig_cap=0``, which is exact. On the card ``split_batch`` runs as
+one program (``ops/programs.py``: a CUDA graph a (W, n, in_cap,
+trig_cap)), as split_jax runs it as one ``jax.jit`` (:395).
+``block_split`` is the per-window form over a host match table
+(split_jax.block_split_jax, :459).
 
 Out-of-range writes that the JAX package drops go to a dump column that
 is cut off afterwards; out-of-range reads are clipped as JAX clips them.
@@ -31,6 +34,7 @@ from ..constants import (
     NOFFSETSYMS,
 )
 
+from . import programs
 from .chain_cuda import chain_marks
 from .prefix_cuda import prefix_tables
 from .entropy_torch import dynamic_cost
@@ -121,11 +125,21 @@ def split_batch(win_p, rl, ro, prev: int, n_real, in_cap: int, trig_cap: int = 0
 
     win_p (W, n) uint8, rl/ro (W, n) int32 match-table row 0, n_real
     (W,) int32. Returns (splits (W, 64) int32 ascending with INF
-    padding, n_splits (W,), tok_marks (W, n) bool, ovf (W,) bool)."""
+    padding, n_splits (W,), tok_marks (W, n) bool, ovf (W,) bool). One
+    ``split_program`` (a graph replay on the card, keyed on W, n,
+    ``in_cap`` and ``trig_cap``)."""
+    start = torch.full((rl.shape[0],), prev, dtype=I32, device=rl.device)
+    return programs.run(split_program, win_p, rl, ro, start, n_real, in_cap=in_cap,
+                        trig_cap=trig_cap)
+
+
+def split_program(win_p, rl, ro, start, n_real, *, in_cap: int, trig_cap: int):
+    """``split_batch`` with each lane's range start ``start`` (W,) int32 a
+    tensor, so that one program serves every start."""
     W, n = rl.shape
     dev = rl.device
     step = torch.where(rl >= MIN_MATCH_SIZE, rl, 1)
-    tok_marks = chain_marks(step, torch.full((W,), prev, dtype=I32, device=dev), n_real)
+    tok_marks = chain_marks(step, start, n_real)
     n_tok, starts, ends, bucket_t, sym1_t, sym2_t = token_structure(win_p, rl, ro, tok_marks)
     tok_iota = torch.arange(n, dtype=I32, device=dev)[None, :]
     tok_valid = tok_iota < n_tok[:, None]
@@ -162,7 +176,7 @@ def split_batch(win_p, rl, ro, prev: int, n_real, in_cap: int, trig_cap: int = 0
 
     zero_r = torch.zeros((W, MAX_RANGES), dtype=I32, device=dev)
     r_bs = zero_r.clone()
-    r_bs[:, 0] = prev
+    r_bs[:, 0] = start
     r_be = zero_r.clone()
     r_be[:, 0] = n_real
     r_ts = zero_r.clone()

@@ -3,14 +3,36 @@
     python3 -m zultra_tpu_torch.profile_stages
 
 Compresses the gzip case of smoke_golden.json (the 4 MiB mixed corpus,
-four 1 MiB windows) after one warm-up call, three ways:
+four 1 MiB windows) after a first call (the kernels' build, every
+program's shapes met eagerly) and a second (every program's capture,
+``ops/programs.py``), four ways:
 
 1. untraced: host clock around the call, ending in a synchronize;
-2. stage timing: each stage function wrapped in torch.cuda.synchronize()
-   and the host clock (nested stages are counted inside their parent);
-3. traced: torch.profiler with CUDA activity only,
-   for the device's busy time, the kernel time by name, and the device
-   time per launch of each of the port's own kernels.
+2. stage timing: the top-level stages wrapped in torch.cuda.synchronize()
+   and the host clock, the planner and the splitter replayed as graphs;
+3. eager stage timing: ``programs.run`` bypassed, so that the planner and
+   the splitter run their functions eagerly, op by op, and their
+   sub-stages can be wrapped too (a synchronize cannot sit inside a
+   capture or a replay); labelled "eager" in the output;
+4. traced: torch.profiler with CUDA activity only, for the device's busy
+   time, the kernel time by name, and the device time per launch of each
+   of the port's own kernels.
+
+Also the first and second calls' seconds, the peak memory the allocator
+reserved by the end of the untraced call, and the programs: their
+number, the graph pool's bytes, each one's capture ms, and each one
+replayed against an eager call of its function on the untraced call's
+inputs (equal; the replay's device ms by events).
+
+    python3 -m zultra_tpu_torch.profile_stages --fresh one-shot
+    python3 -m zultra_tpu_torch.profile_stages --fresh cli
+
+time what a process that compresses once pays, with the kernels built
+by an earlier process: ``one-shot``, three ``compress_device`` calls of
+the gzip case, the first of them the process's first (each call's
+seconds); ``cli``, the CLI's ``-gzip -c`` on the gzip case's input
+written to a file (its seconds, in this process: the CLI's ``Stream``).
+Neither needs the programs.
 
 Prints the card's name and power limit first and one JSON object last.
 Needs a CUDA device; exits non-zero without one.
@@ -24,14 +46,16 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from collections import defaultdict
 from pathlib import Path
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import device_pipeline
+from . import cli, device_pipeline
 from .corpus import case_inputs
 from .ops import (
     block_torch,
@@ -42,18 +66,24 @@ from .ops import (
     split_torch,
 )
 
+from .ops import programs
+
 GOLDEN = Path(__file__).resolve().parent / "smoke_golden.json"
 
 # (module, function name, stage label); a label with ": " is part of the
-# stage before its colon.
+# stage before its colon. The top-level stages are outside every program.
 STAGES = [
     (device_pipeline, "match_tables_device_stacked", "match tables"),
     (matchfinder_torch, "walk_segments", "match tables: walk"),
     (device_pipeline, "split_batch", "block split"),
+    (device_pipeline, "plan_blocks_device_multi", "block plans"),
+    (device_pipeline, "emit_window_from_plan", "host splice"),
+]
+# Inside the programs: timed on the eager run alone.
+SUBSTAGES = [
     (split_torch, "dynamic_cost", "block split: dynamic_cost"),
     (split_torch, "chain_marks", "block split: chain"),
     (split_torch, "prefix_tables", "block split: prefix_tables"),
-    (device_pipeline, "plan_blocks_device_multi", "block plans"),
     (block_torch, "token_hist", "block plans: token_hist"),
     (block_torch, "dynamic_cost", "block plans: dynamic_cost"),
     (block_torch, "build_lengths", "block plans: build_lengths"),
@@ -64,7 +94,6 @@ STAGES = [
     (block_torch, "mask_search", "block plans: mask_search"),
     (block_torch, "canonical_codewords", "block plans: canonical_codewords"),
     (block_torch, "emit_tokens", "block plans: emit"),
-    (device_pipeline, "emit_window_from_plan", "host splice"),
     # Inside the dynamic costs of both stages and the mask search; not
     # part of the wall's sum.
     (entropy_torch, "rle_histogram_masks", "(in split and plans) rle_stats histograms"),
@@ -84,8 +113,63 @@ def _timed(fn, label, seconds):
     return wrapper
 
 
+def _staged(run, stages, eager: bool):
+    """(wall, {label: seconds}) of one run with ``stages`` wrapped; with
+    ``eager`` every program's function is called directly."""
+    seconds = defaultdict(float)
+    patches = [(mod, name, _timed(getattr(mod, name), label, seconds))
+               for mod, name, label in stages]
+    if eager:
+        patches.append((programs, "run", lambda fn, *inputs, **statics: fn(*inputs, **statics)))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        wall = run()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return wall, {label: seconds[label] for _, _, label in stages}
+
+
+def _fresh(mode: str, data: bytes, case: dict, dev, smi: str) -> int:
+    """The ``--fresh`` runs: what one process that compresses once pays."""
+    torch.zeros(1, device=dev)  # the CUDA context, outside every timing
+    if mode == "one-shot":
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = device_pipeline.compress_device(data, case["flags"], case["block_size"],
+                                                  device=dev)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if len(out) != case["out_len"]:
+                raise SystemExit(f"output length {len(out)} != golden {case['out_len']}")
+        print(f"fresh one-shot: calls {', '.join(f'{t:.3f}' for t in secs)} s")
+        print(json.dumps({"card": smi, "fresh": mode, "calls_s": secs}))
+        return 0
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = Path(tmp) / "in.bin", Path(tmp) / "out.gz"
+        src.write_bytes(data)
+        t0 = time.perf_counter()
+        rc = cli.main(["-gzip", "-c", str(src), str(dst)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out = dst.read_bytes() if rc == 0 else b""
+    size = len(out)
+    if rc != 0 or zlib.decompress(out, 31) != data:
+        raise SystemExit(f"cli: exit code {rc}, or its output does not decode to the input")
+    print(f"fresh cli -gzip -c: {secs:.3f} s, {size} B")
+    print(json.dumps({"card": smi, "fresh": mode, "seconds": secs, "out_bytes": size}))
+    return 0
+
+
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--fresh", choices=("one-shot", "cli"),
+                        help="time one process's first compressions alone")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
@@ -96,6 +180,8 @@ def main() -> int:
     dev = torch.device("cuda")
     case = next(c for c in json.loads(GOLDEN.read_text())["cases"] if c["name"] == "gzip")
     data, _ = case_inputs(case)
+    if args.fresh:
+        return _fresh(args.fresh, data, case, dev, smi)
 
     def run():
         torch.cuda.synchronize()
@@ -107,24 +193,40 @@ def main() -> int:
             raise SystemExit(f"output length {len(out)} != golden {case['out_len']}")
         return time.perf_counter() - t0
 
-    run()  # warm-up: kernel build, allocator, caches
+    first = run()  # the kernels' build, the allocator's caches; every shape eager
+    second = run()  # every program's capture
     reset_launch_counts()
     wall = run()
     launches = launch_counts()
-    print(f"untraced: {wall:.3f} s, {len(data) / 1e6 / wall:.4f} MB/s; launches {launches}")
+    reserved = torch.cuda.max_memory_reserved()
+    print(f"first call: {first:.3f} s; second (captures): {second:.3f} s; untraced: "
+          f"{wall:.3f} s, {len(data) / 1e6 / wall:.4f} MB/s; launches {launches}; peak "
+          f"reserved {reserved} B")
+    progs = [{"key": p["text"], "name": p["key"][0].__qualname__, "capture_ms": p["capture_ms"],
+              "launches": p["launches"]} for p in programs.captured(dev)]
+    for p in progs:
+        print(f"  program {p['key']}: capture {p['capture_ms']:.1f} ms; launches a replay "
+              f"{p['launches']}")
+    pool = programs.pool_bytes(dev)
+    print(f"programs: {len(progs)} graphs, pool {pool} B")
+    # Each program's device time: back-to-back replays on the inputs of its
+    # last call (the untraced run's), beside an eager call's events.
+    for p, r in zip(progs, programs.replay_against_eager(dev)):
+        p.update(replay_ms=r["replay_ms"], eager_ms=r["eager_ms"], max_abs_err=r["max_abs_err"])
+        if r["max_abs_err"]:
+            raise SystemExit(f"program {p['key']}: replay differs from its eager call")
+    for name in sorted({p["name"] for p in progs}):
+        mine = [p for p in progs if p["name"] == name]
+        print(f"  {name}: {len(mine)} graphs, replays {sum(p['replay_ms'] for p in mine):.3f} "
+              f"ms of device time, eager calls {sum(p['eager_ms'] for p in mine):.3f} ms "
+              f"(events); replay equal to eager")
 
-    seconds = defaultdict(float)
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in STAGES]
-    for mod, name, label in STAGES:
-        setattr(mod, name, _timed(getattr(mod, name), label, seconds))
-    try:
-        staged = run()
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-    print(f"stage-timed: {staged:.3f} s")
-    for _, _, label in STAGES:
-        print(f"  {label}: {seconds[label]:.4f} s")
+    runs = {"stage-timed": _staged(run, STAGES, eager=False),
+            "eager stage-timed": _staged(run, STAGES + SUBSTAGES, eager=True)}
+    for name, (secs, stages) in runs.items():
+        print(f"{name}: {secs:.3f} s")
+        for label, v in stages.items():
+            print(f"  {label}: {v:.4f} s")
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         traced = run()
@@ -150,8 +252,13 @@ def main() -> int:
         print(f"  port kernel {k['name']}: {k['s']:.6f} s over {k['count']} launches, "
               f"{k['us_per_launch']:.2f} us each")
     print(json.dumps({
-        "card": smi, "mb": len(data) / 1e6, "wall_s": wall, "mb_per_s": len(data) / 1e6 / wall,
-        "launches": launches, "stage_timed_wall_s": staged, "stages_s": dict(seconds),
+        "card": smi, "mb": len(data) / 1e6, "first_call_s": first, "second_call_s": second,
+        "wall_s": wall,
+        "mb_per_s": len(data) / 1e6 / wall, "launches": launches,
+        "max_memory_reserved": reserved, "programs": progs,
+        "pool_bytes": pool,
+        "stage_timed": {name: {"wall_s": secs, "stages_s": stages}
+                        for name, (secs, stages) in runs.items()},
         "traced_wall_s": traced, "device_busy_s": busy, "idle_share_traced": 1 - busy / traced,
         "idle_share_untraced_derived": 1 - busy / wall, "port_kernels": ours,
         "top_kernels": [{"s": s, "count": c, "name": k[:120]} for s, c, k in kernels[:15]]}))
