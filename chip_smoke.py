@@ -30,16 +30,18 @@ compresses every case of zultra_tpu_torch/smoke_golden.json in one
 shot: a seeded 4 MiB mixed corpus in gzip (four 1 MiB windows in one
 device batch), then deflate, zlib at 64 KiB blocks, a preset
 dictionary, incompressible bytes and 2 MiB at 64 KiB blocks (33
-windows, three device batches). The planner and the splitter run as
-programs (``ops/programs.py``: a shape's first call runs eagerly, its
-second is captured into a CUDA graph and replayed, later ones replay);
+windows, three device batches). The match stage, the planner and the
+splitter run as programs (``ops/programs.py``: a shape's first call runs
+eagerly, its second is captured into a CUDA graph and replayed, later
+ones replay);
 the programs phase replays each one captured so far against an eager
 call of its function on the same inputs (every output equal, no sync
 inside the replay), checks that the gzip run that captured launched what
 its eager first run launched and captured the programs of that run's
-shapes and no other, and that a replaying gzip run launched the same, and
-prints each program's launches, capture and replay ms, the graph pool's
-bytes and the number of graphs. Then streams
+shapes and no other (its match program among them), and that a replaying
+gzip run launched the same, and prints each program's launches, capture
+and replay ms (the gzip run's match program on a line of its own), the
+graph pool's bytes and the number of graphs. Then streams
 the gzip and the 33-window cases through ``Stream`` in 16 KiB chunks, and
 runs the CLI (``-c``, ``-cbench``, ``-quicktest``). Then the paths of many
 windows, devices and processes: every window of the zlib case planned
@@ -226,7 +228,7 @@ def main() -> int:
         mk_inputs,
         mk_lengths,
     )
-    from zultra_tpu_torch.ops import checksum
+    from zultra_tpu_torch.ops import checksum, matchfinder_torch
     from zultra_tpu_torch.ops.emit_torch import write_tokens
     from zultra_tpu_torch.ops.matchfinder_torch import HALO, match_tables_device_stacked
     from zultra_tpu_torch.parallel import multihost, sharded_corpus_stats
@@ -377,11 +379,15 @@ def main() -> int:
     try:
         # Also the warm-up of the library and caches, and the first call of
         # each of the gzip run's programs: eager.
+        # The gzip run's keys: those it met first, and the match program's,
+        # which the call above met first and this run captured.
         seen_before = set(programs.device_programs(dev).seen)
+        captured_before = {p["key"] for p in programs.captured(dev)}
         reset_launch_counts()
         compress_device(data, 2, device=dev)
         eager_counts = launch_counts()
-        gzip_keys = set(programs.device_programs(dev).seen) - seen_before
+        gzip_keys = ((set(programs.device_programs(dev).seen) - seen_before)
+                     | ({p["key"] for p in programs.captured(dev)} - captured_before))
     finally:
         block_torch.run_dp = real_run_dp
         block_torch.token_hist, block_torch.emit_tokens = real_token_hist, real_emit
@@ -760,6 +766,7 @@ def main() -> int:
         return b"".join(pieces)
 
     first = {}  # name -> (seconds, launches) of each case's one-shot run
+    captured_golden = {p["key"] for p in programs.captured(dev)}
     for case in golden:
         name = case["name"]
         d, dictionary = inputs[name]
@@ -771,21 +778,23 @@ def main() -> int:
             print(f"one-shot gzip {len(d)} B -> {len(out)} B, equal to the golden digest, "
                   f"decodes; port {len(d) / 1e6 / secs:.3f} MB/s ({secs:.2f} s) on {smi}; "
                   f"launches {got_counts}")
-            # The second gzip run captured the programs of the shapes the
-            # first met, and no other, and launched what the first launched.
+            # By now the programs of the shapes the first gzip run met are
+            # captured (the kernel phases' own gzip calls come between), this
+            # run captured no other, and it launched what the first launched.
             if counts != eager_counts:
                 raise SystemExit(f"programs: the capturing gzip run launched {counts}, the "
                                  f"eager first run {eager_counts}")
-            gzip_programs = programs.captured(dev)
-            if {p["key"] for p in gzip_programs} != gzip_keys:
-                raise SystemExit("programs: the second gzip run did not capture the shapes of "
-                                 "the first, or captured others")
+            captured_now = {p["key"] for p in programs.captured(dev)}
+            if not gzip_keys <= captured_now or (captured_now - captured_golden) - gzip_keys:
+                raise SystemExit("programs: the gzip shapes are not all captured, or the gzip "
+                                 "run captured others")
+            gzip_programs = [p for p in programs.captured(dev) if p["key"] in gzip_keys]
             gzip_pool = programs.pool_bytes(dev)
         else:
             print(f"{name}: {len(d)} B -> {len(out)} B, equal to the golden digest, decodes "
                   f"({secs:.2f} s); launches {got_counts}")
 
-    # -- the programs: the planner and the splitter as CUDA graphs ---------
+    # -- the programs: the match stage, the planner and the splitter as CUDA graphs
     # Every program captured so far (the gzip run's, then those of the
     # other cases that met a shape twice), replayed on the inputs of its last call with
     # set_sync_debug_mode("error") around the replay, against an eager call
@@ -799,6 +808,16 @@ def main() -> int:
               f"equal to the eager call (max abs err 0), no sync in the replay; launches a "
               f"replay {r['launches']}; capture {r['capture_ms']:.1f} ms, replay "
               f"{r['replay_ms']:.4f} ms, eager {r['eager_ms']:.4f} ms (events)")
+    match_rows = [r for r in rows if r["key"] in gzip_keys
+                  and r["key"][0] is matchfinder_torch.match_program]
+    if len(match_rows) != 1:
+        raise SystemExit(f"programs: the gzip run captured {len(match_rows)} match programs, "
+                         "not one")
+    r = match_rows[0]
+    print(f"match program (gzip run, {r['text']}): captured; replay equal to the eager call "
+          f"(max abs err {r['max_abs_err']}) under set_sync_debug_mode('error'); replay "
+          f"{r['replay_ms']:.4f} ms, capture {r['capture_ms']:.1f} ms, eager {r['eager_ms']:.4f} "
+          f"ms; launches a replay {r['launches']}; on {smi}")
     print(f"programs: the gzip run captured {len(gzip_programs)} graphs, pool {gzip_pool} B; "
           f"{len(rows)} graphs after every golden case, pool {programs.pool_bytes(dev)} B, "
           f"peak reserved {torch.cuda.max_memory_reserved()} B; the capturing gzip run's "

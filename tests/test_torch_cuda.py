@@ -46,6 +46,8 @@ from zultra_tpu_torch.ops.matchfinder_torch import (
     HALO,
     SEG_CORE,
     build_segments,
+    match_program,
+    match_stacks,
     match_tables_device_stacked,
     salcp_batch,
 )
@@ -829,3 +831,31 @@ def test_padded_zero_length_lanes_on_the_card(cuda):
     plain = block_torch.plan_block_core(*args)
     for key in plain:
         assert torch.equal(out[key].cpu(), plain[key]), key
+
+
+def test_match_program_replay_equals_eager_and_cpu(cuda):
+    """Two 64 KiB windows, the second a zero run (its segments need all
+    17 doubling rounds): three calls on the card (eager, captured, replayed;
+    the last under set_sync_debug_mode("error"), the upload's pinned copies
+    included) each equal the CPU form, window bytes too; the replay equals
+    an eager call of the program on the same inputs."""
+    mbs = 65536
+    corpus = np.concatenate([np.frombuffer(mixed_corpus(mbs, seed=81), np.uint8),
+                             np.zeros(mbs, np.uint8)])
+    spans = [(0, mbs), (mbs, 2 * mbs)]
+    want = match_stacks(corpus, spans, mbs, "cpu")
+    assert int((want[0][1, HALO:, 0] >= 3).sum()) > mbs - 300
+    for call in range(3):
+        torch.cuda.synchronize()
+        if call == 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = match_stacks(corpus, spans, mbs, cuda)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w), call
+    rows = programs.replay_against_eager(cuda, fn=match_program)
+    keys = [r["key"] for r in rows if dict(r["key"][2]) == {"W": 2, "k": 2}]
+    assert len(keys) == 1
+    assert all(r["max_abs_err"] == 0 and r["launches"] == {"walk": 1} for r in rows), rows

@@ -1,6 +1,7 @@
-"""The programs of the port (zultra_tpu_torch.ops.programs): the planner
-and the splitter run as one CUDA graph a shape on the card, eagerly on
-the CPU. On the CPU:
+"""The programs of the port (zultra_tpu_torch.ops.programs): the match
+stage, the planner and the splitter run as one CUDA graph a shape on the
+card, eagerly on the CPU. On the CPU (the match program's own tests are
+in tests/test_torch_match_program.py):
 
 - a bucket padded to a power of two lanes (zero-length lanes, dropped)
   plans its real lanes as the JAX package's ``plan_blocks_device_multi``
@@ -43,9 +44,12 @@ from zultra_tpu_torch.ops import (
     block_torch,
     dp_cuda,
     entropy_torch,
+    matchfinder_torch,
     programs,
     split_torch,
+    suffix_torch,
     symbol_map,
+    walk_cuda,
 )
 from zultra_tpu_torch.ops.chain_cuda import chain_marks_plain
 from zultra_tpu_torch.ops.matchfinder_torch import HALO, match_tables_device_stacked
@@ -191,7 +195,11 @@ def _golden_keys(case: dict, monkeypatch) -> list:
 
     def tables(corpus_, spans, mbs_, device):
         z = torch.zeros((len(spans), HALO + mbs_, 8), dtype=torch.int32)
-        return z, z
+        win = np.zeros((len(spans), HALO + mbs_), np.uint8)
+        for w, (lo, hi) in enumerate(spans):
+            prev = min(HISTORY_SIZE, lo)
+            win[w, HALO - prev : HALO + hi - lo] = corpus_[lo - prev : hi]
+        return z, z, torch.from_numpy(win)
 
     keys = []
 
@@ -219,7 +227,7 @@ def _golden_keys(case: dict, monkeypatch) -> list:
                 "words": torch.zeros((B, 2), dtype=torch.int64),
                 "total_bits": torch.zeros(B, dtype=torch.int32)}
 
-    monkeypatch.setattr(device_pipeline, "match_tables_device_stacked", tables)
+    monkeypatch.setattr(device_pipeline, "match_stacks", tables)
     monkeypatch.setattr(programs, "run", run)
     device_pipeline.compress_device(data, case["flags"], case["block_size"], dictionary,
                                     device="cpu")
@@ -270,9 +278,9 @@ def test_program_keys_of_golden_cases_are_few_and_stable(monkeypatch):
 def test_payload_sizes_share_the_programs(path, monkeypatch):
     """Payloads of many sizes under one block size, through ``Stream`` (its
     lane width follows the largest window so far) and the per-window
-    ``begin_window`` (a lane as wide as the window): one planner key and one
-    splitter key serve them all, since a key holds the bucket's padded
-    shape and not the window's width."""
+    ``begin_window`` (a lane as wide as the window): one match, one planner
+    and one splitter key serve them all, since a key holds the batch's or
+    the bucket's padded shape and not the window's width."""
     data = mixed_corpus(4000, seed=5)
     keys = {}
     real_run = programs.run
@@ -293,7 +301,8 @@ def test_payload_sizes_share_the_programs(path, monkeypatch):
             engine.begin_window(corpus[: 300 + size], 300, size)
     first = keys[700]
     assert all(k == first for k in keys.values()), keys
-    assert sorted(fn.__name__ for fn, _, _ in first) == ["plan_block_core", "split_program"]
+    assert sorted(fn.__name__ for fn, _, _ in first) == ["match_program", "plan_block_core",
+                                                          "split_program"]
     for fn, shapes, _ in first:
         if fn is block_torch.plan_block_core:
             _check_planner_shapes(shapes)
@@ -454,8 +463,14 @@ def test_cpu_tensors_call_the_function():
 # No host sync under a capture
 # ---------------------------------------------------------------------------
 
-# Every function that runs inside the planner's or the splitter's program.
+# Every function that runs inside the match, planner or splitter program
+# on the card (the CPU-only forms it calls on a CPU tensor are not here).
 CAPTURED = {
+    matchfinder_torch: ("match_program", "segments_from_corpus", "_gather", "salcp_batch",
+                        "assemble_lanes"),
+    suffix_torch: ("doubling_rounds_fixed", "stored_rounds", "later_rounds", "_round",
+                   "_sort_rerank", "adjacent_lcp"),
+    walk_cuda: ("walk_segments",),
     block_torch: ("plan_block_core", "token_starts", "token_hist",
                   "offset_workaround", "_match_bits", "post_optimize", "emit_tokens"),
     entropy_torch: ("_scatter_dump", "_lex_order", "mk_inputs", "mk_lengths", "limited_lengths",

@@ -34,7 +34,7 @@ from .constants import (
 )
 from .huffman import HuffmanEncoder, write_var_lengths
 from .ops.block_torch import plan_blocks_device_multi, to_device, to_host
-from .ops.matchfinder_torch import HALO, match_table, match_tables_device_stacked
+from .ops.matchfinder_torch import HALO, match_stacks, match_table
 from .ops.split_torch import input_cap, split_batch, split_bucket, trig_cap_for
 from .stream import StreamError, clamp_block_size, memory_bound
 
@@ -175,19 +175,12 @@ def emit_window_from_plan(handle: _WindowPlan, window_is_last: bool,
 def begin_windows_batched(corpus: np.ndarray, spans, mbs: int, device) -> list:
     """Plan a batch of windows on ``device``. Every window occupies a
     (HALO + mbs) lane with its first input byte at offset HALO and its
-    real history bytes (<= 32 KB) just below. Returns one _WindowPlan
-    per span, in order."""
-    W = len(spans)
+    real history bytes (<= 32 KB) just below; the lanes' bytes and match
+    tables come from ``match_stacks``. Returns one _WindowPlan per span,
+    in order."""
     n_lane = HALO + mbs
-    lens_st, offs_st = match_tables_device_stacked(corpus, spans, mbs, device)
-
-    win_stack = np.zeros((W, n_lane), np.uint8)
-    prevs = []
-    for w, (w_lo, w_hi) in enumerate(spans):
-        prev = min(HISTORY_SIZE, w_lo)
-        prevs.append(prev)
-        win_stack[w, HALO - prev : HALO + (w_hi - w_lo)] = corpus[w_lo - prev : w_hi]
-    win_dev = to_device(win_stack, device)
+    lens_st, offs_st, win_dev = match_stacks(corpus, spans, mbs, device)
+    prevs = [min(HISTORY_SIZE, w_lo) for w_lo, _ in spans]
 
     n_pad = split_bucket(n_lane)
     tail = n_pad - n_lane

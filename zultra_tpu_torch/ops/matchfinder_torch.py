@@ -19,6 +19,22 @@ whatever the size, and a 32 KiB core (one segment per 32 KiB of input,
 half of each walk spent warming the halo) trades halo overhead for more
 segments walking in parallel. Every legal block size is a multiple of
 32 KiB up to the last partial window.
+
+Where the segments are built. The host computes only their geometry
+(``segment_geometry``: where each segment's bytes lie in the batch's
+corpus slice and where they land in the segment) and the window lanes'
+(``window_geometry``), and copies the slice to the device once
+(``upload_batch``). The device builds the segments from it
+(``segments_from_corpus``: one gather and one select) and the lanes'
+window bytes from the same copy. ``match_program``, segments to lanes,
+is one program of ``ops/programs.py`` (a CUDA graph a batch shape on the
+card, the counterpart of the JAX package's jitted ``_salcp_batch``, walk,
+``_extract_batch`` and ``_assemble_stacked``). Its shapes depend on the
+window count W and k = ceil(mbs / SEG_CORE) alone: the slice is padded
+to HALO + W*k*SEG_CORE + TAIL bytes and the segments to W*k (all
+sentinels), so a shorter last window or a preset dictionary changes the
+geometry's values and not the program. ``build_segments`` is the plain
+numpy form of the segments.
 """
 
 from __future__ import annotations
@@ -27,6 +43,7 @@ import numpy as np
 import torch
 
 from ..constants import (
+    HISTORY_SIZE,
     LCP_SHIFT,
     MAX_MATCH_SIZE,
     MAX_OFFSET,
@@ -35,76 +52,175 @@ from ..constants import (
 )
 
 from ..matchfinder import find_all_matches
-from .suffix_torch import adjacent_lcp, doubling_rounds
+from . import programs
+from .block_torch import to_device
+from .suffix_torch import adjacent_lcp, doubling_rounds, doubling_rounds_fixed
 from .walk_cuda import walk_segments
 
 HALO = MAX_OFFSET  # 32768 history bytes make segment rows exact
 TAIL = MAX_MATCH_SIZE  # 258 lookahead bytes make clamped lengths exact
 SEG_CORE = 32768
+SEG_LEN = HALO + SEG_CORE + TAIL
 
 
-def build_segments(data: np.ndarray, spans, seg_core: int):
-    """Cut the corpus into per-window segments with the uniform layout
-    (copy of zultra_tpu.ops.matchfinder_jax.build_segments, which is
-    numpy-only but lives in a module that imports jax).
-
-    Returns (segbufs (S, L) int32, metas) with L = HALO + seg_core + TAIL
-    and metas[s] = (window_index, core_lo_abs, core_len)."""
-    L = HALO + seg_core + TAIL
-    bufs = []
+def segment_geometry(spans, seg_core: int = SEG_CORE, origin: int = 0):
+    """The host half of the segment cut (zultra_tpu.ops.matchfinder_jax.
+    build_segments). -> (geometry (S, 3) int32, metas): segment s takes
+    ``count`` corpus bytes from ``src_lo`` (relative to ``origin``) into
+    its positions ``dst`` on, and metas[s] = (window_index, core_lo_abs,
+    core_len). Matches reach up to 32 KB back into the previous window,
+    never before the window's own history, and LCPs clamp at the window's
+    end."""
+    geom = []
     metas = []
     for w, (w_lo, w_hi) in enumerate(spans):
-        prev = min(HALO, w_lo)
-        buf_start_abs = w_lo - prev
+        buf_start_abs = w_lo - min(HALO, w_lo)
         core = w_lo
         while core < w_hi:
             core_hi = min(core + seg_core, w_hi)
             lo = max(core - HALO, buf_start_abs)
-            hi = min(core_hi + TAIL, w_hi)  # lcps clamp at the window end
-            buf = 256 + np.arange(L, dtype=np.int32)
-            dst = HALO - (core - lo)
-            buf[dst : dst + (hi - lo)] = data[lo:hi]
-            bufs.append(buf)
+            hi = min(core_hi + TAIL, w_hi)
+            geom.append((lo - origin, HALO - (core - lo), hi - lo))
             metas.append((w, core, core_hi - core))
             core = core_hi
-    return np.stack(bufs), metas
+    return np.array(geom, np.int32).reshape(-1, 3), metas
+
+
+def window_geometry(spans, origin: int = 0) -> np.ndarray:
+    """The window lanes' rows in the ``segment_geometry`` form: lane w
+    holds its history (at most HISTORY_SIZE bytes) just below HALO and its
+    input from HALO, zeros elsewhere. (W, 3) int32."""
+    rows = []
+    for w_lo, w_hi in spans:
+        prev = min(HISTORY_SIZE, w_lo)
+        rows.append((w_lo - prev - origin, HALO - prev, prev + w_hi - w_lo))
+    return np.array(rows, np.int32).reshape(-1, 3)
+
+
+def build_segments(data: np.ndarray, spans, seg_core: int):
+    """The segments on the host, the plain form of ``segments_from_corpus``
+    (zultra_tpu.ops.matchfinder_jax.build_segments). -> (segbufs (S, L)
+    int32, metas) with L = HALO + seg_core + TAIL."""
+    geom, metas = segment_geometry(spans, seg_core)
+    bufs = np.tile(256 + np.arange(HALO + seg_core + TAIL, dtype=np.int32), (len(geom), 1))
+    for buf, (src_lo, dst, count) in zip(bufs, geom):
+        buf[dst : dst + count] = data[src_lo : src_lo + count]
+    return bufs, metas
+
+
+def upload_batch(corpus: np.ndarray, spans, mbs: int, device):
+    """A batch's one copy to ``device``: its corpus slice, from the first
+    window's history to the last window's end, padded with zeros to HALO
+    + W*k*SEG_CORE + TAIL bytes, and the geometry rows, W*k segments (the
+    missing ones all sentinels: count 0) then W windows.
+    -> (corpus_dev (HALO + W*k*SEG_CORE + TAIL,) uint8, meta (W*k + W, 3)
+    int32, W, k)."""
+    W = len(spans)
+    k = -(-mbs // SEG_CORE)
+    if W == 0 or any(hi - lo != mbs for lo, hi in spans[:-1]) \
+            or not 0 < spans[-1][1] - spans[-1][0] <= mbs:
+        raise ValueError("need spans of mbs bytes, the last one of at most mbs")
+    origin = spans[0][0] - min(HALO, spans[0][0])
+    size = HALO + W * k * SEG_CORE + TAIL
+    if spans[-1][1] - origin > size:
+        raise ValueError("the spans of a batch must follow one another")
+    buf = np.zeros(size, np.uint8)
+    buf[: spans[-1][1] - origin] = corpus[origin : spans[-1][1]]
+    seg, _ = segment_geometry(spans, SEG_CORE, origin)
+    meta = np.zeros((W * k + W, 3), np.int32)
+    meta[: len(seg)] = seg
+    meta[W * k :] = window_geometry(spans, origin)
+    return to_device(buf, device), to_device(meta, device), W, k
+
+
+def _gather(corpus_dev: torch.Tensor, geom: torch.Tensor, width: int):
+    """Rows of ``width`` positions filled from the corpus by their geometry
+    rows: -> (bytes (R, width) uint8, inside (R, width) bool), bytes 0
+    outside [dst, dst + count)."""
+    j = torch.arange(width, dtype=torch.int32, device=corpus_dev.device)[None, :]
+    rel = j - geom[:, 1:2]
+    inside = (rel >= 0) & (rel < geom[:, 2:3])
+    idx = torch.where(inside, geom[:, 0:1] + rel, 0)
+    return torch.where(inside, corpus_dev[idx.to(torch.int64)], 0), inside
+
+
+def segments_from_corpus(corpus_dev: torch.Tensor, seg_meta: torch.Tensor,
+                         L: int) -> torch.Tensor:
+    """The segment buffers (S, L) int32 on the device, equal to
+    ``build_segments``: corpus bytes where a segment's geometry row puts
+    them, the unique sentinel 256 + j at every other position j."""
+    data, inside = _gather(corpus_dev, seg_meta, L)
+    sentinel = 256 + torch.arange(L, dtype=torch.int32, device=corpus_dev.device)
+    return torch.where(inside, data.to(torch.int32), sentinel[None, :])
 
 
 def salcp_batch(bufs: torch.Tensor) -> torch.Tensor:
     """SA | clamped adjacent LCP << LCP_SHIFT in rank order, per segment
     (the walk's input). LCPs clamp at MAX_MATCH_SIZE, so rank tables up
-    to 256-grams suffice (256 + 128 + ... + 1 >= 258)."""
-    sa, ranks = doubling_rounds(bufs, store_levels=8)
+    to 256-grams suffice (256 + 128 + ... + 1 >= 258). On the card the
+    doubling runs its fixed count of rounds (no host sync: a graph holds
+    it); on the CPU it stops once every rank is distinct. Both give the
+    same words."""
+    rounds = doubling_rounds_fixed if bufs.is_cuda else doubling_rounds
+    sa, ranks = rounds(bufs, store_levels=8)
     raw = adjacent_lcp(sa, ranks)
     clamped = torch.where(raw < MIN_MATCH_SIZE, 0, torch.clamp(raw, max=MAX_MATCH_SIZE))
     lcp_at_rank = torch.cat([torch.zeros_like(clamped[:, :1]), clamped], dim=1)
     return sa | (lcp_at_rank << LCP_SHIFT)
 
 
-def match_tables_device_stacked(corpus: np.ndarray, spans, mbs: int, device):
-    """Match tables for a batch of window spans in the stacked lane
-    layout: (lens, offs), each (W, HALO + mbs, 8) int32 on ``device``.
-    Lane w's rows [HALO, HALO + in_size_w) are window w's input
-    positions; every other row is zero. Every span but the last must be
-    exactly ``mbs`` long."""
-    corpus = np.asarray(corpus, dtype=np.uint8)
-    W = len(spans)
-    for w_lo, w_hi in spans[:-1]:
-        if w_hi - w_lo != mbs:
-            raise ValueError("only the last span may be partial")
-    k = -(-mbs // SEG_CORE)
-    segbufs, _ = build_segments(corpus, spans, SEG_CORE)
-    S = segbufs.shape[0]
-    bufs = torch.from_numpy(segbufs).to(device)
-    rows = walk_segments(salcp_batch(bufs), HALO, SEG_CORE)  # (S, SEG_CORE, 8)
-    if W * k > S:  # the last window's missing segments
-        rows = torch.cat([rows, rows.new_zeros((W * k - S, SEG_CORE, NMATCHES_PER_OFFSET))])
-    rows = rows.reshape(W, k * SEG_CORE, NMATCHES_PER_OFFSET)[:, :mbs]
-    in_sizes = torch.tensor([hi - lo for lo, hi in spans], dtype=torch.int32, device=device)
-    live = torch.arange(mbs, dtype=torch.int32, device=device)[None, :, None] < in_sizes[:, None, None]
+def assemble_lanes(rows: torch.Tensor, corpus_dev: torch.Tensor, win_meta: torch.Tensor,
+                   W: int, k: int):
+    """(W*k, SEG_CORE, 8) packed rows -> lens, offs (W, HALO + k*SEG_CORE,
+    8) int32 and the window bytes (W, HALO + k*SEG_CORE) uint8, the stacked
+    lane layout (zultra_tpu.ops.matchfinder_jax._assemble_stacked and the
+    window stack of zultra_tpu.device_pipeline._begin_windows_batched).
+    Segment cores tile each window, so a lane's rows are a reshape; rows
+    past the window's input and the HALO rows below it are zero."""
+    n_core = k * SEG_CORE
+    win, _ = _gather(corpus_dev, win_meta, HALO + n_core)
+    in_sizes = win_meta[:, 2] - (HALO - win_meta[:, 1])  # count - prev
+    rows = rows.reshape(W, n_core, NMATCHES_PER_OFFSET)
+    live = torch.arange(n_core, dtype=torch.int32, device=rows.device)[None, :, None] \
+        < in_sizes[:, None, None]
     rows = torch.where(live, rows, 0)
     rows = torch.cat([rows.new_zeros((W, HALO, NMATCHES_PER_OFFSET)), rows], dim=1)
-    return rows >> 16, rows & 0xFFFF
+    return rows >> 16, rows & 0xFFFF, win
+
+
+def match_program(corpus_dev: torch.Tensor, meta: torch.Tensor, *, W: int, k: int):
+    """A batch's whole match stage on the device, from ``upload_batch``'s
+    copy: segments, suffix arrays and rank tables (8 stored levels),
+    adjacent LCPs, the walk kernel, the lanes. -> (lens, offs, win) as
+    ``assemble_lanes`` gives them, lanes HALO + k*SEG_CORE wide."""
+    bufs = segments_from_corpus(corpus_dev, meta[: W * k], SEG_LEN)
+    rows = walk_segments(salcp_batch(bufs), HALO, SEG_CORE)  # (W*k, SEG_CORE, 8)
+    return assemble_lanes(rows, corpus_dev, meta[W * k :], W, k)
+
+
+def match_stacks(corpus: np.ndarray, spans, mbs: int, device):
+    """The match tables and window bytes of a batch of window spans in the
+    stacked lane layout: (lens, offs) each (W, HALO + mbs, 8) int32 and
+    win (W, HALO + mbs) uint8 on ``device``. Lane w's rows [HALO, HALO +
+    in_size_w) are window w's input positions, and its bytes from HALO -
+    min(HISTORY_SIZE, lo_w) to HALO + in_size_w its history and input;
+    every other row and byte is zero. Every span but the last must be
+    exactly ``mbs`` long, and the spans must follow one another. One copy
+    to the device, then ``match_program`` (a graph replay on the card
+    once its shape has come twice)."""
+    corpus_dev, meta, W, k = upload_batch(np.asarray(corpus, dtype=np.uint8), spans, mbs,
+                                          device)
+    lens, offs, win = programs.run(match_program, corpus_dev, meta, W=W, k=k)
+    n_lane = HALO + mbs
+    return lens[:, :n_lane], offs[:, :n_lane], win[:, :n_lane]
+
+
+def match_tables_device_stacked(corpus: np.ndarray, spans, mbs: int, device):
+    """Match tables for a batch of window spans in the stacked lane
+    layout: (lens, offs), each (W, HALO + mbs, 8) int32 on ``device``, as
+    ``match_stacks`` gives them."""
+    lens, offs, _ = match_stacks(corpus, spans, mbs, device)
+    return lens, offs
 
 
 def match_table_device(window: np.ndarray, start: int, end: int, device="cuda"):

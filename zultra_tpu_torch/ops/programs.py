@@ -1,7 +1,8 @@
 """Programs: a function of device tensors run as one captured CUDA graph
 for each shape it is called with, the port's counterpart of the JAX
 package's ``jax.jit`` (``block_jax._plan_block_core``, ``split_jax``'s
-batched splitter).
+batched splitter, the match stage's ``_salcp_batch``, walk and
+``_assemble_stacked``).
 
 ``run(fn, *inputs, **statics)`` calls ``fn(*inputs, **statics)``. On a
 CUDA device the call is keyed on ``fn`` itself, the shape and type of
@@ -209,17 +210,19 @@ def pool_bytes(device="cuda") -> int:
                if seg["device"] == index and tuple(seg["segment_pool_id"]) == pool)
 
 
-def replay_against_eager(device="cuda", reps: int = 3) -> list:
-    """Replay every program of ``device`` on the static inputs its last
-    call left, with ``torch.cuda.set_sync_debug_mode("error")`` around the
-    replay (a sync there raises), and call its function eagerly on the same
-    inputs. -> one dict a program: key, max abs err over every output
-    (exact equality is 0), replay ms and eager ms (CUDA events, mean of
-    ``reps``)."""
+def replay_against_eager(device="cuda", reps: int = 3, fn=None) -> list:
+    """Replay every program of ``device`` (those of the function ``fn``
+    alone, if given) on the static inputs its last call left, with
+    ``torch.cuda.set_sync_debug_mode("error")`` around the replay (a sync
+    there raises), and call its function eagerly on the same inputs. -> one
+    dict a program: key, max abs err over every output (exact equality is
+    0), replay ms and eager ms (CUDA events, mean of ``reps``)."""
     progs = device_programs(device)
     rows = []
     with progs.lock, progs.graphs.current():
         for p in progs.programs.values():
+            if fn is not None and p.fn is not fn:
+                continue
             prev = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:

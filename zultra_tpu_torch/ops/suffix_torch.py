@@ -8,6 +8,12 @@ scatter back to position order. Port of zultra_tpu.ops.suffix_jax's
 both produce the same permutation. ``suffix_array`` and ``plcp`` port
 ``suffix_array_jax`` and ``plcp_jax`` (one byte string, numpy out).
 
+Two forms of the rounds past the stored ones: ``doubling_rounds`` stops
+once every rank is distinct (a host sync a round, as the JAX package's
+``lax.while_loop`` tests its flag on the device); ``doubling_rounds_fixed``
+runs all ceil(log2 n) of them, the identities included, so that the
+match program can be one captured CUDA graph.
+
 Ties. JAX sorts (rank, rank2, idx) with ``lax.sort``; here one stable
 sort of the packed key breaks ties by position. Only the order among
 equal keys could differ, and neither output depends on it: the new
@@ -48,37 +54,63 @@ def _sort_rerank(rank: torch.Tensor, rank2: torch.Tensor, base: int):
     return sa.to(torch.int32), new_rank, distinct
 
 
+def _round(rank: torch.Tensor, k: int):
+    """One doubling round: (rank_i, rank_{i+k}) sorted, re-ranked; -1 past
+    the end. -> (sa, new rank, per-segment all-distinct flag)."""
+    S, n = rank.shape
+    neg = torch.full((S, min(k, n)), -1, dtype=torch.int32, device=rank.device)
+    rank2 = torch.cat([rank[:, k:], neg], dim=1) if k < n else neg
+    return _sort_rerank(rank, rank2, n + 257)
+
+
+def stored_rounds(data: torch.Tensor, store_levels: int | None = None):
+    """The first rounds, whose ranks are kept: min(store_levels,
+    num_levels(n)) of them (all with None). -> (sa, distinct, ranks
+    (stored + 1, S, n) int32), ranks[l] comparing 2^l-grams."""
+    levels = num_levels(data.shape[1])
+    store = levels if store_levels is None else min(store_levels, levels)
+    rank = data.to(torch.int32)
+    rows = [rank]
+    sa = distinct = None
+    for level in range(store):
+        sa, rank, distinct = _round(rank, 1 << level)
+        rows.append(rank)
+    return sa, distinct, torch.stack(rows)
+
+
+def later_rounds(sa: torch.Tensor, rank: torch.Tensor, level: int) -> torch.Tensor:
+    """Rounds ``level`` .. num_levels(n) - 1, every one of them, with no
+    test of the ranks: nothing here waits for the device. -> sa."""
+    for lv in range(level, num_levels(rank.shape[1])):
+        sa, rank, _ = _round(rank, 1 << lv)
+    return sa
+
+
 def doubling_rounds(data: torch.Tensor, store_levels: int | None = None):
     """data: (S, n) int32 symbols, each below 256 + n (bytes plus unique
     sentinels). Returns (sa (S, n) int32, ranks (store+1, S, n) int32)
     where ranks[l] compares 2^l-grams (ranks[0] is the data itself).
 
-    Rounds past ``store_levels`` run only until every segment's ranks
-    are distinct; once they are, further rounds are identities."""
-    S, n = data.shape
-    levels = num_levels(n)
-    if store_levels is None or store_levels > levels:
-        store_levels = levels
-    base = n + 257
-    neg = torch.full((S, n), -1, dtype=torch.int32, device=data.device)
+    Rounds past ``store_levels`` stop as soon as every segment's ranks are
+    distinct (further rounds are identities), which the host learns by
+    waiting for the device after each of them: the form for the CPU and
+    for one-off calls (``suffix_array``, ``plcp``, the corpus statistics).
+    ``doubling_rounds_fixed`` runs them all and never waits."""
+    sa, distinct, ranks = stored_rounds(data, store_levels)
+    rank, level = ranks[-1], ranks.shape[0] - 1
+    while level < num_levels(data.shape[1]) and not bool(distinct.all()):
+        sa, rank, distinct = _round(rank, 1 << level)
+        level += 1
+    return sa, ranks
 
-    def shifted(rank, k):
-        if k >= n:
-            return neg
-        return torch.cat([rank[:, k:], neg[:, :k]], dim=1)
 
-    rank = data.to(torch.int32)
-    rows = [rank]
-    sa = None
-    distinct = None
-    for level in range(min(levels, store_levels)):
-        sa, rank, distinct = _sort_rerank(rank, shifted(rank, 1 << level), base)
-        rows.append(rank)
-    k = 1 << store_levels
-    while levels > store_levels and k < (1 << levels) and not bool(distinct.all()):
-        sa, rank, distinct = _sort_rerank(rank, shifted(rank, k), base)
-        k *= 2
-    return sa, torch.stack(rows)
+def doubling_rounds_fixed(data: torch.Tensor, store_levels: int | None = None):
+    """``doubling_rounds`` with every one of its num_levels(n) rounds run:
+    the same (sa, ranks), since rounds past distinctness are identities,
+    and no host sync, so that a CUDA graph can hold it (the JAX package's
+    ``lax.while_loop`` runs inside its jit)."""
+    sa, _, ranks = stored_rounds(data, store_levels)
+    return later_rounds(sa, ranks[-1], ranks.shape[0] - 1), ranks
 
 
 def adjacent_lcp(sa: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:

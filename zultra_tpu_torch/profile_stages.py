@@ -22,17 +22,26 @@ Also the first and second calls' seconds, the peak memory the allocator
 reserved by the end of the untraced call, and the programs: their
 number, the graph pool's bytes, each one's capture ms, and each one
 replayed against an eager call of its function on the untraced call's
-inputs (equal; the replay's device ms by events).
+inputs (equal; the replay's device ms by events). The eager run splits
+the match tables into the upload, the segments, the 8 stored doubling
+rounds and the rounds past them, the LCP, the walk and the lanes. Last,
+for every device batch of every golden case: the round after which the
+ranks were distinct (where the early exit would stop), the rounds past 8
+alone and the match program's replay (device ms by events).
 
     python3 -m zultra_tpu_torch.profile_stages --fresh one-shot
     python3 -m zultra_tpu_torch.profile_stages --fresh cli
+    python3 -m zultra_tpu_torch.profile_stages --fresh quicktest
 
 time what a process that compresses once pays, with the kernels built
 by an earlier process: ``one-shot``, three ``compress_device`` calls of
 the gzip case, the first of them the process's first (each call's
 seconds); ``cli``, the CLI's ``-gzip -c`` on the gzip case's input
-written to a file (its seconds, in this process: the CLI's ``Stream``).
-Neither needs the programs.
+written to a file (its seconds, in this process: the CLI's ``Stream``);
+``quicktest``, three runs of the CLI's ``-quicktest`` (59 compressions
+of at most 4 KiB, one window each: the first run meets their shapes
+eagerly and captures those that come twice, later runs replay; each
+run's seconds).
 
 Prints the card's name and power limit first and one JSON object last.
 Needs a CUDA device; exits non-zero without one.
@@ -52,6 +61,7 @@ import zlib
 from collections import defaultdict
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -64,23 +74,31 @@ from .ops import (
     matchfinder_torch,
     reset_launch_counts,
     split_torch,
+    suffix_torch,
 )
 
 from .ops import programs
+from .stream import clamp_block_size
 
 GOLDEN = Path(__file__).resolve().parent / "smoke_golden.json"
 
 # (module, function name, stage label); a label with ": " is part of the
 # stage before its colon. The top-level stages are outside every program.
 STAGES = [
-    (device_pipeline, "match_tables_device_stacked", "match tables"),
-    (matchfinder_torch, "walk_segments", "match tables: walk"),
+    (device_pipeline, "match_stacks", "match tables"),
+    (matchfinder_torch, "upload_batch", "match tables: upload"),
     (device_pipeline, "split_batch", "block split"),
     (device_pipeline, "plan_blocks_device_multi", "block plans"),
     (device_pipeline, "emit_window_from_plan", "host splice"),
 ]
 # Inside the programs: timed on the eager run alone.
 SUBSTAGES = [
+    (matchfinder_torch, "segments_from_corpus", "match tables: segments"),
+    (suffix_torch, "stored_rounds", "match tables: doubling, the 8 stored rounds"),
+    (suffix_torch, "later_rounds", "match tables: doubling, the rounds past 8"),
+    (matchfinder_torch, "adjacent_lcp", "match tables: LCP"),
+    (matchfinder_torch, "walk_segments", "match tables: walk"),
+    (matchfinder_torch, "assemble_lanes", "match tables: lanes"),
     (split_torch, "dynamic_cost", "block split: dynamic_cost"),
     (split_torch, "chain_marks", "block split: chain"),
     (split_torch, "prefix_tables", "block split: prefix_tables"),
@@ -132,9 +150,69 @@ def _staged(run, stages, eager: bool):
     return wall, {label: seconds[label] for _, _, label in stages}
 
 
+def _golden_match(case: dict, dev) -> list:
+    """One row a device batch of a golden case's one-shot run: its shape,
+    the round after which every segment's ranks were distinct (where the
+    early exit stops, at 8 at the earliest; the program runs all of
+    ``num_levels``), the rounds past 8 alone on the card (events), and the
+    match program's replay and eager ms on the batch's inputs (the case
+    run twice before: its shapes captured)."""
+    data, dictionary = case_inputs(case)
+    for _ in range(2):
+        device_pipeline.compress_device(data, case["flags"], case["block_size"], dictionary,
+                                        device=dev)
+    corpus = np.frombuffer((dictionary or b"") + data, np.uint8)
+    base, mbs = len(dictionary or b""), clamp_block_size(case["block_size"])
+    spans = [(lo, min(lo + mbs, len(corpus))) for lo in range(base, len(corpus), mbs)]
+    per = device_pipeline.WINDOWS_PER_BATCH
+    replays = {r["key"]: r for r in programs.replay_against_eager(
+        dev, fn=matchfinder_torch.match_program)}
+    rows = []
+    for g in range(0, len(spans), per):
+        corpus_dev, meta, W, k = matchfinder_torch.upload_batch(corpus, spans[g : g + per],
+                                                                mbs, dev)
+        bufs = matchfinder_torch.segments_from_corpus(corpus_dev, meta[: W * k],
+                                                      matchfinder_torch.SEG_LEN)
+        levels = suffix_torch.num_levels(bufs.shape[1])
+        rank, distinct_at = bufs, None
+        for level in range(levels):
+            _, rank, distinct = suffix_torch._round(rank, 1 << level)
+            if distinct_at is None and bool(distinct.all()):
+                distinct_at = level + 1
+        sa, _, ranks = suffix_torch.stored_rounds(bufs, 8)
+        later_ms = programs._event_ms(lambda: suffix_torch.later_rounds(sa, ranks[-1], 8), 3)
+        prog = replays[programs.program_key(matchfinder_torch.match_program, (corpus_dev, meta),
+                                            {"W": W, "k": k})]
+        if prog["max_abs_err"]:
+            raise SystemExit(f"{case['name']}: the match program's replay differs from its "
+                             "eager call")
+        rows.append({"case": case["name"], "W": W, "k": k, "segments": W * k,
+                     "distinct_after_round": distinct_at, "rounds": levels,
+                     "rounds_past_8_ms": later_ms, "replay_ms": prog["replay_ms"],
+                     "eager_ms": prog["eager_ms"], "capture_ms": prog["capture_ms"]})
+        r = rows[-1]
+        print(f"  match program [{case['name']}, W {W}, k {k}]: ranks distinct after round "
+              f"{distinct_at} of {levels}; replay {r['replay_ms']:.3f} ms (rounds past 8 "
+              f"{later_ms:.3f} ms, share {later_ms / r['replay_ms']:.3f}), eager "
+              f"{r['eager_ms']:.3f} ms, capture {r['capture_ms']:.1f} ms")
+    return rows
+
+
 def _fresh(mode: str, data: bytes, case: dict, dev, smi: str) -> int:
     """The ``--fresh`` runs: what one process that compresses once pays."""
     torch.zeros(1, device=dev)  # the CUDA context, outside every timing
+    if mode == "quicktest":
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            rc = cli.main(["-quicktest"], device=dev)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if rc != 0:
+                raise SystemExit(f"cli -quicktest: exit code {rc}")
+        print(f"fresh cli -quicktest: runs {', '.join(f'{t:.3f}' for t in secs)} s")
+        print(json.dumps({"card": smi, "fresh": mode, "calls_s": secs}))
+        return 0
     if mode == "one-shot":
         secs = []
         for _ in range(3):
@@ -167,7 +245,7 @@ def _fresh(mode: str, data: bytes, case: dict, dev, smi: str) -> int:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--fresh", choices=("one-shot", "cli"),
+    parser.add_argument("--fresh", choices=("one-shot", "cli", "quicktest"),
                         help="time one process's first compressions alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -251,8 +329,13 @@ def main() -> int:
     for k in ours:
         print(f"  port kernel {k['name']}: {k['s']:.6f} s over {k['count']} launches, "
               f"{k['us_per_launch']:.2f} us each")
+    # Every golden case's match programs, after the measurements above (its
+    # captures add graphs to the pool).
+    print("match programs of the golden cases:")
+    golden_match = [row for c in json.loads(GOLDEN.read_text())["cases"]
+                    for row in _golden_match(c, dev)]
     print(json.dumps({
-        "card": smi, "mb": len(data) / 1e6, "first_call_s": first, "second_call_s": second,
+        "card": smi, "golden_match": golden_match, "mb": len(data) / 1e6, "first_call_s": first, "second_call_s": second,
         "wall_s": wall,
         "mb_per_s": len(data) / 1e6 / wall, "launches": launches,
         "max_memory_reserved": reserved, "programs": progs,
