@@ -25,7 +25,13 @@ gzip run gives them: the RLE decision sweep (every histogram batch of
 the planner), the RLE statistics (the mask search's 20 masks in one
 launch a mode, the splitter's largest one-mask calls) and the prefix
 tables (4 x 2^21 tokens and a seeded lane of one 64 KiB window, beside
-``torch.cumsum`` of their one-hot). Then
+``torch.cumsum`` of their one-hot); and the four kernels of the planner's
+fused passes (``csrc/plan.cu``) at the shapes the 4 MiB gzip run gives
+them: the DP's lane preparation and the emission on every planner
+bucket, the token histograms on every bucket with the splitter's marks
+(the match tables' first row, a strided view) and with the chain's, and
+the (key, index) order of every row shape the planner and the splitter
+sort, beside ``torch.sort(stable=True)``. Then
 compresses every case of zultra_tpu_torch/smoke_golden.json in one
 shot: a seeded 4 MiB mixed corpus in gzip (four 1 MiB windows in one
 device batch), then deflate, zlib at 64 KiB blocks, a preset
@@ -56,7 +62,7 @@ histogram kernel, Adler partial sums) with the checksums against zlib, and
 compression must
 rebuild the recorded input (sha256), match the recorded output digest
 (what zultra_tpu writes on its native engine), decode with zlib, and
-launch all eight compression kernels, counted from 0 just before each run
+launch all twelve compression kernels, counted from 0 just before each run
 (the statistics phase the histogram kernel, ``write_tokens`` the chain
 kernel; the ranks of the distributed run report their own counts). Prints
 the card's name and power limit, one line per phase, a JSON line of
@@ -98,9 +104,17 @@ KERNELS = {
     "rle_sweep": ("zultra_tpu_torch/csrc/rle.cu", "zultra_tpu/ops/entropy_jax.py:462"),
     "rle_stats": ("zultra_tpu_torch/csrc/rle.cu", "zultra_tpu/ops/entropy_jax.py:255"),
     "prefix_tables": ("zultra_tpu_torch/csrc/prefix.cu", "zultra_tpu/ops/split_jax.py:176"),
+    # The planner's fused XLA passes (no Pallas counterpart either): the DP's
+    # lane preparation, token histograms, token emission and the (key,
+    # index) sort of short rows.
+    "prep_lanes": ("zultra_tpu_torch/csrc/plan.cu", "zultra_tpu/ops/dp_pallas.py:192"),
+    "token_hist": ("zultra_tpu_torch/csrc/plan.cu", "zultra_tpu/ops/block_jax.py:170"),
+    "emit_tokens": ("zultra_tpu_torch/csrc/plan.cu", "zultra_tpu/ops/block_jax.py:331"),
+    "lex_order": ("zultra_tpu_torch/csrc/plan.cu", "zultra_tpu/ops/entropy_jax.py:77"),
 }
 COMPRESS_KERNELS = ("walk", "dp", "chain", "mk12", "kraft", "rle_sweep", "rle_stats",
-                    "prefix_tables")  # every compression's path
+                    "prefix_tables", "prep_lanes", "token_hist", "emit_tokens",
+                    "lex_order")  # every compression's path
 # The kernel that no path of either package runs (tests and exports only).
 OFF_PATH_KERNELS = {
     "matchlen": ("zultra_tpu_torch/csrc/matchlen.cu", "zultra_tpu/ops/matchlen.py:34"),
@@ -247,7 +261,7 @@ def main() -> int:
     _build.lib()
     print(f"build: {_build.library_path().name} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds:.2f} s)")
-    for src in ("walk", "dp", "chain", "mk", "matchlen", "histogram", "rle", "prefix"):
+    for src in ("walk", "dp", "chain", "mk", "matchlen", "histogram", "rle", "prefix", "plan"):
         for line in _build.build_log.get(src, "").splitlines():
             if line.strip():
                 print(f"nvcc -Xptxas -v {src}.cu: {line.strip()}")
@@ -327,6 +341,10 @@ def main() -> int:
     real_hist, real_bits = entropy_torch.rle_histogram_masks, entropy_torch.rle_bits_masks
     real_prefix = split_torch.prefix_tables
     scan_args = {"rle_sweep": {}, "rle_stats": {}, "prefix_tables": {}}
+    # The fused passes' arguments of the run, by shape: the token histograms
+    # (with the marks each call used), the emissions, the short-row sorts.
+    real_lex = entropy_torch._lex_order
+    fused_args = {"token_hist": {}, "emit_tokens": {}, "lex_order": {}}
 
     # The planner and the splitter are programs (ops/programs.py): the
     # first call of each shape runs eagerly, the second is captured into a
@@ -363,19 +381,28 @@ def main() -> int:
 
     def recording_token_hist(window, lens, offs, length, is_tok=None):
         record(emitted, "length", length.clone)  # the planner's first call: its lane lengths
-        return real_token_hist(window, lens, offs, length, is_tok)
+        out = real_token_hist(window, lens, offs, length, is_tok)
+        record(fused_args["token_hist"], (tuple(window.shape), is_tok is not None),
+               lambda: (window, lens, offs, out[2]))  # lens, offs: views, kept strided
+        return out
 
     def recording_emit(*args):
         out = real_emit(*args)
         record(emitted, "args", lambda: args)
         record(emitted, "out", lambda: out)
+        record(fused_args["emit_tokens"], tuple(args[0].shape), lambda: args)
         return out
+
+    def recording_lex(key):
+        record(fused_args["lex_order"], tuple(key.shape), key.clone)
+        return real_lex(key)
 
     block_torch.run_dp = recording_run_dp
     block_torch.token_hist, block_torch.emit_tokens = recording_token_hist, recording_emit
     block_torch.optimize_for_rle = recording_sweep
     entropy_torch.rle_histogram_masks, entropy_torch.rle_bits_masks = recording_hist, recording_bits
     split_torch.prefix_tables = recording_prefix
+    entropy_torch._lex_order = recording_lex
     try:
         # Also the warm-up of the library and caches, and the first call of
         # each of the gzip run's programs: eager.
@@ -394,6 +421,7 @@ def main() -> int:
         block_torch.optimize_for_rle = real_sweep
         entropy_torch.rle_histogram_masks, entropy_torch.rle_bits_masks = real_hist, real_bits
         split_torch.prefix_tables = real_prefix
+        entropy_torch._lex_order = real_lex
     for n_pad, args in sorted(buckets.items()):
         dp_rows.append(dp_row(f"gzip bucket {n_pad}", (*dp_cuda.prep_lanes(*args), args[5]), 3))
     dp_rows.append(dp_row("64 KiB zero run", one_lane(np.zeros(1 << 16, np.uint8)), 3))
@@ -580,7 +608,8 @@ def main() -> int:
     # The bound counts the bytes this run's data needs (``need``: the
     # statistics read a lane's first n_def lengths, the prefix tables the
     # tokens below n_tok), else every input and output once.
-    def scan_row(name, label, kernel, plain, args, reps, library=None, need=None):
+    def scan_row(name, label, kernel, plain, args, reps, library=None, need=None,
+                 library_name="torch.cumsum"):
         got = kernel(*args)
         want = plain(*args)
         pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
@@ -597,7 +626,7 @@ def main() -> int:
         print(f"{name} [{label}]: equal on {row['shape']}; kernel {row['ms']:.4f} ms (device "
               f"{fmt_ms(row['device_ms'])}), plain {row['plain_ms']:.3f} ms (cuda), bound "
               f"{row['bound_ms']:.4g} ms"
-              + ("" if library is None else f", torch.cumsum {row['library_ms']:.4f} ms"))
+              + ("" if library is None else f", {library_name} {row['library_ms']:.4f} ms"))
         return row
 
     sweep_rows = [scan_row("rle_sweep", f"planner {B} x {L}", rle_cuda.optimize_for_rle,
@@ -660,6 +689,42 @@ def main() -> int:
         del onehot
     results["prefix_tables"] = dict(prefix_rows[0], plain_device="cuda", rows=prefix_rows)
     del scan_args
+
+    # The planner's fused passes at the shapes of the 4 MiB gzip run
+    # (recorded above): the DP's lane preparation on every bucket's first
+    # pass, the token histograms of every bucket (the greedy call, whose
+    # lengths and offsets are the match tables' first row, a view of
+    # stride 8, and a convergence pass), the emission of every bucket, and
+    # the (key, index) order of every row shape the planner and the
+    # splitter sorted. Each against its plain form on the card, with ms by
+    # events and the device ms of a call from a trace; the sort also beside
+    # torch.sort(stable=True), its library call. The bound counts every
+    # input read once and every output written once (of a strided view,
+    # its elements alone).
+    def largest(rows):  # the row of the most bytes stands for the kernel
+        return max(rows, key=lambda r: r["bound_ms"])
+
+    prep_rows = [scan_row("prep_lanes", f"gzip bucket {tuple(args[2].shape)}",
+                          dp_cuda.prep_lanes, dp_cuda.prep_lanes_plain, args, 5)
+                 for _, args in sorted(buckets.items())]
+    results["prep_lanes"] = dict(largest(prep_rows), plain_device="cuda", rows=prep_rows)
+    hist_rows_f = [scan_row(
+        "token_hist", f"{'given marks' if given else 'chain marks'} {shape}",
+        lambda w, ln, of, tok: block_torch.token_hist(w, ln, of, None, tok)[:2],
+        block_torch.token_hist_plain, args, 5)
+        for (shape, given), args in sorted(fused_args["token_hist"].items())]
+    results["token_hist"] = dict(largest(hist_rows_f), plain_device="cuda", rows=hist_rows_f)
+    emit_rows = [scan_row("emit_tokens", f"gzip bucket {shape}", block_torch.emit_tokens,
+                          block_torch.emit_tokens_plain, args, 5)
+                 for shape, args in sorted(fused_args["emit_tokens"].items())]
+    results["emit_tokens"] = dict(largest(emit_rows), plain_device="cuda", rows=emit_rows)
+    lex_rows = [scan_row("lex_order", f"{B} rows x {S}", entropy_torch._lex_order,
+                         entropy_torch._lex_order_plain, (key,), 20,
+                         library=lambda key=key: torch.sort(key, dim=1, stable=True),
+                         library_name="torch.sort(stable=True)")
+                for (B, S), key in sorted(fused_args["lex_order"].items(), reverse=True)]
+    results["lex_order"] = dict(largest(lex_rows), plain_device="cuda", rows=lex_rows)
+    del fused_args
 
     # matchlen: the pair (i, i - offset) of every position of the 4 MiB
     # corpus whose first match row has length >= 3, with the share of
@@ -744,7 +809,7 @@ def main() -> int:
     # -- the one-shot path end to end, every golden case ----------------
     def timed_run(label, case, d, dictionary, fn):
         """Run ``fn`` with the counts set to 0; check its output and the
-        eight path kernels' launches. -> (output, seconds, launches)"""
+        twelve path kernels' launches. -> (output, seconds, launches)"""
         reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()

@@ -25,9 +25,11 @@ from zultra_tpu_torch.ops import (
     block_torch,
     chain_cuda,
     dp_cuda,
+    entropy_torch,
     histogram_cuda,
     matchlen_cuda,
     mk_cuda,
+    plan_cuda,
     prefix_cuda,
     programs,
     rle_cuda,
@@ -641,7 +643,8 @@ def test_sharded_corpus_stats_on_the_card(cuda):
 
 
 def test_write_tokens_on_the_card(cuda):
-    """Token emission on the card (chain kernel token starts) equals its
+    """Token emission on the card (chain kernel token starts, the emission
+    kernel with the encoders' tables cut to 288 and 32 symbols) equals its
     CPU form on a parse from the native optimal parser."""
     from zultra_tpu import native
     from zultra_tpu.constants import (
@@ -667,7 +670,7 @@ def test_write_tokens_on_the_card(cuda):
                                    data, table, 5000, len(data)).astype(np.int32)
     ops.reset_launch_counts()
     got = write_tokens(data, best, 5000, len(data), lit, off, device=cuda)
-    assert ops.launch_counts()["chain"] == 1
+    assert ops.launch_counts()["chain"] == 1 and ops.launch_counts()["emit_tokens"] == 1
     assert got == write_tokens(data, best, 5000, len(data), lit, off, device="cpu")
 
 
@@ -827,7 +830,8 @@ def test_padded_zero_length_lanes_on_the_card(cuda):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert all(counts[k] > 0 for k in ("dp", "chain", "mk12", "kraft", "rle_sweep",
-                                        "rle_stats")), counts
+                                        "rle_stats", "prep_lanes", "token_hist",
+                                        "emit_tokens", "lex_order")), counts
     plain = block_torch.plan_block_core(*args)
     for key in plain:
         assert torch.equal(out[key].cpu(), plain[key]), key
@@ -859,3 +863,117 @@ def test_match_program_replay_equals_eager_and_cpu(cuda):
     keys = [r["key"] for r in rows if dict(r["key"][2]) == {"W": 2, "k": 2}]
     assert len(keys) == 1
     assert all(r["max_abs_err"] == 0 and r["launches"] == {"walk": 1} for r in rows), rows
+
+
+# ---------------------------------------------------------------------------
+# The planner's fused passes (csrc/plan.cu): K11-K14
+# ---------------------------------------------------------------------------
+
+# The planner's bucket shapes (lanes, positions) of the 4 MiB gzip case.
+GZIP_BUCKETS = [(128, 32768), (4, 65536), (1, 131072), (4, 262144), (2, 524288), (2, 1048576)]
+
+
+def _planner_inputs(B, n, seed, dev):
+    """Seeded planner lanes on the card: window bytes, match tables (B, n,
+    8) of mostly short matches (some of 258, offsets 1, 256, 257 and
+    32768 among them), lengths (the first lane full, the last 0 where B >
+    1, the rest seeded), token marks of the first row's chain, and code
+    tables (lengths 1-15, codewords below 2^length)."""
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=dtype)
+
+    window = ints(0, 256, (B, n), torch.uint8)
+    u = torch.rand((B, n, 8), generator=g, device=dev)
+    mlens = torch.where(u < 0.15, ints(3, 40, (B, n, 8)),
+                        torch.where(u > 0.995, 258, 0)).to(torch.int32)
+    moffs = torch.where(mlens >= 3, ints(1, 32769, (B, n, 8)), 0).to(torch.int32)
+    edge = torch.tensor([1, 256, 257, 32768], dtype=torch.int32, device=dev)
+    moffs[:, ::97, :4] = torch.where(mlens[:, ::97, :4] >= 3, edge, 0)
+    length = torch.from_numpy(rng.integers(n // 2, n + 1, B).astype(np.int32)).to(dev)
+    length[0] = n
+    if B > 1:
+        length[-1] = 0
+    is_tok = chain_cuda.chain_marks(torch.where(mlens[:, :, 0] >= 3, mlens[:, :, 0], 1),
+                                    torch.zeros_like(length), length)
+    lit_len, off_len = ints(1, 16, (B, 288)), ints(1, 16, (B, 32))
+    lit_cw = ints(0, 1 << 15, (B, 288)) & ((1 << lit_len) - 1)
+    off_cw = ints(0, 1 << 15, (B, 32)) & ((1 << off_len) - 1)
+    return window, mlens, moffs, length, is_tok, (lit_cw, lit_len, off_cw, off_len)
+
+
+def _same(got, want, label):
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, (label, i)
+        assert torch.equal(g, w), (label, i, int((g.to(torch.int64) - w.to(torch.int64))
+                                              .abs().max()))
+
+
+@pytest.mark.parametrize("B,n", GZIP_BUCKETS)
+def test_planner_fused_kernels_equal_plain(cuda, B, n):
+    """prep_lanes, token_hist (given marks: the chain's, and the first
+    row's strided view as the greedy call passes it) and emit_tokens at a
+    gzip bucket shape: each launch's outputs equal the plain forms' on the
+    same card tensors, max abs err 0; one launch count a call."""
+    window, mlens, moffs, length, is_tok, codes = _planner_inputs(B, n, B * 7 + n, cuda)
+    ll, ol = codes[1], codes[3]
+    ops.reset_launch_counts()
+    got = dp_cuda.prep_lanes(ll, ol, window, mlens, moffs, length)
+    _same(got, dp_cuda.prep_lanes_plain(ll, ol, window, mlens, moffs, length), "prep_lanes")
+    lens, offs = mlens[:, :, 0], moffs[:, :, 0]  # strided views
+    got = block_torch.token_hist(window, lens, offs, length, is_tok)
+    _same(got[:2], block_torch.token_hist_plain(window, lens, offs, is_tok), "token_hist")
+    best_len = torch.minimum(lens, torch.clamp(length[:, None] - torch.arange(
+        n, device=cuda, dtype=torch.int32)[None, :], min=0))
+    best_len = torch.where(best_len >= 3, best_len, 0)
+    best_off = torch.where(best_len >= 3, offs, 0)
+    marks = chain_cuda.chain_marks(torch.where(best_len >= 3, best_len, 1),
+                                   torch.zeros_like(length), length)
+    args = (window, best_len, best_off, *codes, marks)
+    _same(block_torch.emit_tokens(*args), block_torch.emit_tokens_plain(*args), "emit_tokens")
+    counts = ops.launch_counts()
+    assert [counts[k] for k in ("prep_lanes", "token_hist", "emit_tokens")] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("S", [19, 32, 288, 320])
+@pytest.mark.parametrize("B", [1, 84, 4096])
+def test_lex_order_kernel_equals_plain(cuda, S, B):
+    """The order of (key, index) at the planner's and splitter's rows
+    (4096 lanes: the splitter's batch), keys with INF32 for unused symbols
+    and many ties, against torch.sort(stable=True) on the card."""
+    rng = np.random.default_rng(S * 13 + B)
+    h = rng.integers(1, 6, (B, S)) * (2 ** rng.integers(0, 9, (B, S)))
+    key = np.where(rng.random((B, S)) < 0.3, entropy_torch.INF32, h)
+    key[0] = entropy_torch.INF32  # an all-zero histogram
+    key = torch.from_numpy(key.astype(np.int32)).to(cuda)
+    ops.reset_launch_counts()
+    got = entropy_torch._lex_order(key)
+    _same([got], [entropy_torch._lex_order_plain(key)], "lex_order")
+    assert ops.launch_counts()["lex_order"] == 1
+
+
+def test_planner_replay_launches_the_fused_kernels(cuda):
+    """A planner bucket (4 lanes of 4096, the last of length 0) run three
+    times through its program: eager, captured, replayed. The graph records
+    K11-K14 (4 DP preparations, 5 histogram passes, 1 emission, the sorts
+    of every MK, Kraft and codeword build), each replay adds them to the
+    counts, and every run's plan equals the plain forms' on the CPU."""
+    window, mlens, moffs, length, is_tok, _ = _planner_inputs(4, 4096, 5, cuda)
+    bucket = (window, mlens, moffs, length, is_tok)
+    want = block_torch.plan_block_core(*[t.cpu() for t in bucket])
+    ops.reset_launch_counts()
+    outs = [programs.run(block_torch.plan_block_core, *bucket) for _ in range(3)]
+    torch.cuda.synchronize()
+    key = programs.program_key(block_torch.plan_block_core, bucket, {})
+    prog = next(p for p in programs.captured(cuda) if p["key"] == key)
+    launches = prog["launches"]
+    assert launches["prep_lanes"] == 4 and launches["token_hist"] == 5
+    assert launches["emit_tokens"] == 1 and launches["lex_order"] > 0, launches
+    counts = ops.launch_counts()
+    assert all(counts[k] == 3 * launches[k] for k in launches), (counts, launches)
+    for out in outs:
+        for name in want:
+            assert torch.equal(out[name].cpu(), want[name]), name

@@ -89,7 +89,8 @@ def test_port_sources_import_no_zultra_tpu():
             "zultra_tpu_torch/cli.py", "zultra_tpu_torch/parallel/__init__.py",
             "zultra_tpu_torch/parallel/multihost.py", "zultra_tpu_torch/profiling.py",
             "zultra_tpu_torch/ops/checksum.py", "zultra_tpu_torch/ops/emit_torch.py",
-            "zultra_tpu_torch/matchfinder.py", "zultra_tpu_torch/suffix.py"} <= names
+            "zultra_tpu_torch/matchfinder.py", "zultra_tpu_torch/suffix.py",
+            "zultra_tpu_torch/ops/plan_cuda.py"} <= names
     assert not bad, bad
 
 

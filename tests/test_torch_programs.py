@@ -45,6 +45,7 @@ from zultra_tpu_torch.ops import (
     dp_cuda,
     entropy_torch,
     matchfinder_torch,
+    plan_cuda,
     programs,
     split_torch,
     suffix_torch,
@@ -479,6 +480,8 @@ CAPTURED = {
                     "defined_count", "static_cost", "_concat_lengths", "_symbol_and_table_cost",
                     "dynamic_cost_given", "dynamic_cost", "mask_histograms", "mask_search"),
     dp_cuda: ("varlen_tables", "prep_lanes", "run_dp"),
+    plan_cuda: ("_lanes", "launch_prep_lanes", "_strided_i32", "launch_token_hist", "num_words",
+                "launch_emit_tokens", "launch_lex_order"),
     split_torch: ("split_batch", "split_program", "token_structure", "_take", "_put"),
     symbol_map: ("floor_log2", "matchlen_sym_extra_base", "offset_sym_extra_base",
                  "offset_index", "select_by_symbol"),

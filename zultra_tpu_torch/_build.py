@@ -48,6 +48,10 @@ _SIGNATURES = {
     "zt_rle_sweep": [_VP, _VP, _I, _I, _VP],
     "zt_rle_stats": [_VP] * 4 + [_I, _I, _VP, _I, _I, _VP],  # masks: a host int array
     "zt_prefix_tables": [_VP] * 7 + [_I] * 3 + [_VP],
+    "zt_prep_lanes": [_VP] * 10 + [_I] * 2 + [_VP],
+    "zt_token_hist": [_VP] * 6 + [_I] * 2 + [_LL] * 4 + [_VP],
+    "zt_emit_tokens": [_VP] * 11 + [_I] * 2 + [_LL, _VP],
+    "zt_lex_order": [_VP, _VP, _I, _I, _VP],
 }
 
 

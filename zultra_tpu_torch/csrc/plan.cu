@@ -1,0 +1,525 @@
+// The block planner's fused per-position passes, four kernels:
+//
+// - prep_lanes (K11): the DP's packed statics for every (lane, position,
+//   match slot): lit, p1, p2 and the lane's varlen40. Replaces the fused
+//   XLA body of zultra_tpu/ops/dp_pallas.py::_prep_lane (vmapped in
+//   run_dp_pallas); caller ops/dp_cuda.py::prep_lanes, once a DP call.
+// - token_hist (K12): the literal/length and offset symbol histograms of
+//   a lane's tokens, EOD += 1 (zultra_tpu/ops/block_jax.py::_token_hist,
+//   its scatter form); caller ops/block_torch.py::token_hist.
+// - emit_tokens (K13): every token's codeword and extra bits packed
+//   LSB-first into 64-bit words holding 32-bit values, EOD last, and the
+//   total bits (block_jax.py::_emit_tokens); caller
+//   ops/block_torch.py::emit_tokens.
+// - lex_order (K14): the indices that sort each row of int32 keys by
+//   (key, index), the order of lax.sort((key, iota), num_keys=2) in
+//   zultra_tpu/ops/entropy_jax.py (mk_lengths :77, limited_lengths :343,
+//   canonical_codewords :449); caller ops/entropy_torch.py::_lex_order.
+//
+// No Pallas counterparts: in the JAX package these are XLA fusions inside
+// the jitted planner (_plan_block_core). Every launch runs on the caller's
+// stream, allocates nothing and never waits on the host, so the planner's
+// CUDA graph records it. ops/plan_cuda.py holds the wrappers and the
+// plain models of the schedules.
+//
+// What bounds them on the card: the bytes. prep_lanes reads 65 B a
+// position (window byte, 8 match lengths and offsets) and writes 68 (lit,
+// p1, p2); token_hist reads 10 B a position; emit_tokens reads 10 and
+// writes half an 8-byte word; lex_order reads 4 B and writes 8 a key.
+// lex_order's rank count makes S compares a key, more than a sort needs
+// (S log2 S): on the splitter's 4096 rows of 288 keys it runs at about
+// 19x the byte time on an H100 (PERF.md, K14).
+//
+// What the design does about it:
+// - prep_lanes: a block per (lane, tile of TILE positions); the lane's
+//   two code-length tables in shared memory; a thread per (position,
+//   slot) element, so each warp reads and writes 128 contiguous bytes of
+//   the (B, n, 8) arrays. The symbol maps are closed forms of
+//   floor(log2(x)) = 31 - clz(x).
+// - token_hist: a block per (lane, TILE positions) counts into 288 + 32
+//   bins in shared memory and adds the nonzero bins into the lane's rows
+//   with integer atomics (exact in any order); block 0 of a lane adds the
+//   EOD. The rows are made zero by the wrapper.
+// - emit_tokens: three launches. count: a block per (lane, chunk of TILE
+//   positions) sums its fields' bit widths; scan: a block per lane scans
+//   the chunk sums into each chunk's first bit and writes the total and
+//   the EOD field; write: a block per chunk scans its positions' widths
+//   (a block-wide scan per 256 positions) and adds each field's one or
+//   two 32-bit pieces into the zeroed words with 64-bit atomics. Fields
+//   never overlap, so the adds are ORs; where they would, the words sum
+//   as the plain form's scatter_add sums.
+// - lex_order: rank by count, exact and order-free: key i goes to
+//   position #{j: k_j < k_i} + #{j < i: k_j == k_i}. A warp a row for S
+//   <= 32 (the keys in registers, read back by shuffles), else a block a
+//   row with the keys in shared memory (every thread reads the same key:
+//   a broadcast).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int TILE = 4096;  // positions a block of every per-position kernel
+constexpr int SLOTS = 8;    // match slots a position
+constexpr int NLIT = 288;   // literal/length symbols
+constexpr int NOFF = 32;    // offset symbols
+constexpr int EOD = 256;    // end-of-block symbol
+constexpr int MIN_MATCH = 3;
+constexpr int LEAVE_ALONE = 40;  // matches of this length or more are never truncated
+constexpr int N_SHORT = LEAVE_ALONE - MIN_MATCH;
+constexpr int INF16 = 0x7FFF;
+constexpr int BIG = 1 << 30;
+constexpr int MAX_SORT = 1024;  // keys a lex_order row
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+__device__ __forceinline__ int floor_log2(int x) { return 31 - __clz(x); }  // x >= 1
+
+// (symbol, extra bits, base) of an encoded match length e = len - 3 in
+// 0..255 (ops/symbol_map.py::matchlen_sym_extra_base).
+__device__ __forceinline__ void len_symbol(int e, int& sym, int& extra, int& base) {
+  const int k = max(floor_log2(max(e, 1)), 2);
+  const int q = e >> (k - 2);
+  if (e < 8) {
+    sym = 257 + e, extra = 0, base = e;
+  } else if (e == 255) {
+    sym = 285, extra = 0, base = 255;
+  } else {
+    sym = 249 + 4 * k + q, extra = k - 2, base = q << (k - 2);
+  }
+}
+
+// The two-level offset-table index of a match offset (symbol_map.py::
+// offset_index).
+__device__ __forceinline__ int offset_index(int off) {
+  const int raw = max(off - 1, 0);
+  const int oidx = raw < 256 ? raw : 256 + ((raw - 256) >> 7);
+  return min(max(oidx, 0), 511);
+}
+
+// (symbol, extra bits, base) of an offset index (symbol_map.py::
+// offset_sym_extra_base).
+__device__ __forceinline__ void off_symbol(int oidx, int& sym, int& extra, int& base) {
+  const int j = oidx < 256 ? oidx : ((oidx - 256) << 7) + 256;
+  const int k = max(floor_log2(max(j, 1)), 1);
+  const int bit = (j >> (k - 1)) & 1;
+  if (j < 4) {
+    sym = j, extra = 0, base = j + 1;
+  } else {
+    sym = 2 * k + bit, extra = k - 1, base = ((2 + bit) << (k - 1)) + 1;
+  }
+}
+
+__device__ __forceinline__ int32_t pack16(int hi, int lo) {
+  return (int32_t)(((uint32_t)hi << 16) | (uint32_t)lo);
+}
+
+// ---------------------------------------------------------------------------
+// K11: the DP's lane preparation
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+    prep_lanes_kernel(const int32_t* __restrict__ ll, const int32_t* __restrict__ ol,
+                      const uint8_t* __restrict__ window, const int32_t* __restrict__ mlens,
+                      const int32_t* __restrict__ moffs, const int32_t* __restrict__ length,
+                      int32_t* __restrict__ lit, int32_t* __restrict__ p1,
+                      int32_t* __restrict__ p2, int32_t* __restrict__ varlen40, int n) {
+  __shared__ int s_ll[NLIT];
+  __shared__ int s_ol[NOFF];
+  const int b = blockIdx.y, tid = threadIdx.x;
+  for (int i = tid; i < NLIT; i += THREADS) s_ll[i] = ll[(size_t)b * NLIT + i];
+  if (tid < NOFF) s_ol[tid] = ol[(size_t)b * NOFF + tid];
+  __syncthreads();
+  const int len = length[b];
+  const int p0 = blockIdx.x * TILE;
+  const int p_end = min(p0 + TILE, n);
+
+  if (blockIdx.x == 0 && tid < 40) {
+    int v = BIG;
+    if (tid < N_SHORT) {
+      int sym, extra, base;
+      len_symbol(tid, sym, extra, base);
+      v = s_ll[sym] + extra;
+    }
+    varlen40[(size_t)b * 40 + tid] = v;
+  }
+  for (int p = p0 + tid; p < p_end; p += THREADS) {
+    lit[(size_t)b * n + p] = p < len ? s_ll[window[(size_t)b * n + p]] : 0;
+  }
+  const size_t row = (size_t)b * n * SLOTS;
+  const int e_end = (p_end - p0) * SLOTS;
+  for (int e = tid; e < e_end; e += THREADS) {
+    const size_t at = row + (size_t)p0 * SLOTS + e;
+    const int p = p0 + e / SLOTS;
+    const int ml = mlens[at];
+    const int remaining = max(len - p, 0);
+    const int clamped = min(ml, remaining);
+    int osym, oextra, obase;
+    off_symbol(offset_index(moffs[at]), osym, oextra, obase);
+    const int osize = ((unsigned)osym < 30u ? s_ol[osym] : 0) + oextra;
+    const bool valid = ml >= MIN_MATCH;
+    const bool is_long = valid && ml >= LEAVE_ALONE;
+    const bool is_short = valid && ml < LEAVE_ALONE;
+    p1[at] = pack16(is_short ? clamped : 0, is_short ? osize : INF16);
+    int e_raw = clamped - MIN_MATCH;
+    if (e_raw < 0 || e_raw > 255) e_raw = 255;
+    int lsym, lextra, lbase;
+    len_symbol(e_raw, lsym, lextra, lbase);
+    const int varlen_e = (lsym >= 257 && lsym < 286 ? s_ll[lsym] : 0) + lextra;
+    p2[at] = pack16(is_long ? clamped : 0, is_long ? varlen_e + osize : INF16);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K12: token histograms
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+    token_hist_kernel(const uint8_t* __restrict__ window, const int32_t* __restrict__ lens,
+                      const int32_t* __restrict__ offs, const uint8_t* __restrict__ is_tok,
+                      int32_t* __restrict__ lit_hist, int32_t* __restrict__ off_hist, int n,
+                      long long lens_lane, long long lens_pos, long long offs_lane,
+                      long long offs_pos) {
+  __shared__ int h_lit[NLIT];
+  __shared__ int h_off[NOFF];
+  const int b = blockIdx.y, tid = threadIdx.x;
+  for (int i = tid; i < NLIT; i += THREADS) h_lit[i] = 0;
+  if (tid < NOFF) h_off[tid] = 0;
+  __syncthreads();
+  if (blockIdx.x == 0 && tid == 0) h_lit[EOD] = 1;
+  const int p0 = blockIdx.x * TILE;
+  const int p_end = min(p0 + TILE, n);
+  for (int p = p0 + tid; p < p_end; p += THREADS) {
+    if (!is_tok[(size_t)b * n + p]) continue;
+    const int ml = lens[b * lens_lane + p * lens_pos];
+    if (ml >= MIN_MATCH) {
+      int sym, extra, base;
+      len_symbol(min(ml - MIN_MATCH, 255), sym, extra, base);
+      atomicAdd(&h_lit[sym], 1);
+      off_symbol(offset_index(offs[b * offs_lane + p * offs_pos]), sym, extra, base);
+      atomicAdd(&h_off[sym], 1);
+    } else {
+      atomicAdd(&h_lit[window[(size_t)b * n + p]], 1);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < NLIT; i += THREADS) {
+    if (h_lit[i]) atomicAdd(&lit_hist[(size_t)b * NLIT + i], h_lit[i]);
+  }
+  if (tid < NOFF && h_off[tid]) atomicAdd(&off_hist[(size_t)b * NOFF + tid], h_off[tid]);
+}
+
+// ---------------------------------------------------------------------------
+// K13: token emission
+// ---------------------------------------------------------------------------
+
+struct Codes {
+  int lit_cw[NLIT], lit_len[NLIT], off_cw[NOFF], off_len[NOFF];
+};
+
+__device__ void load_codes(Codes& c, const int32_t* lit_cw, const int32_t* lit_len,
+                           const int32_t* off_cw, const int32_t* off_len, int b) {
+  for (int i = threadIdx.x; i < NLIT; i += blockDim.x) {
+    c.lit_cw[i] = lit_cw[(size_t)b * NLIT + i];
+    c.lit_len[i] = lit_len[(size_t)b * NLIT + i];
+  }
+  for (int i = threadIdx.x; i < NOFF; i += blockDim.x) {
+    c.off_cw[i] = off_cw[(size_t)b * NOFF + i];
+    c.off_len[i] = off_len[(size_t)b * NOFF + i];
+  }
+}
+
+// The two fields of position p: (value, bits) of the literal or the
+// length code with its extra bits, and of the offset code with its extra
+// bits (0 bits where the position is no token or a literal).
+struct Fields {
+  long long v1, v2;
+  int n1, n2;
+};
+
+__device__ __forceinline__ Fields position_fields(const Codes& c, int tok, int best_len,
+                                                  int best_off, int byte) {
+  Fields f = {0, 0, 0, 0};
+  if (!tok) return f;
+  if (best_len >= MIN_MATCH) {
+    const int e = min(best_len - MIN_MATCH, 255);
+    int ls, le, lb, os, oe, ob;
+    len_symbol(e, ls, le, lb);
+    off_symbol(offset_index(best_off), os, oe, ob);
+    const bool l_in = ls >= 257 && ls < 286, o_in = (unsigned)os < 30u;
+    const int ls_len = l_in ? c.lit_len[ls] : 0;
+    const int os_len = o_in ? c.off_len[os] : 0;
+    f.v1 = (long long)(l_in ? c.lit_cw[ls] : 0) |
+           (long long)((unsigned long long)(long long)(e - lb) << ls_len);
+    f.n1 = ls_len + le;
+    f.v2 = (long long)(o_in ? c.off_cw[os] : 0) |
+           (long long)((unsigned long long)(long long)(best_off - ob) << os_len);
+    f.n2 = os_len + oe;
+  } else {
+    f.v1 = c.lit_cw[byte];
+    f.n1 = c.lit_len[byte];
+  }
+  return f;
+}
+
+// Add a field of `bits` bits at bit offset `at` into the words, as the
+// plain form's two scatter_adds: the low piece at word at >> 5, the high
+// piece at the next word where the field starts inside a word; pieces past
+// the last word are dropped.
+__device__ __forceinline__ void put_field(unsigned long long* words, long long value, int bits,
+                                          long long at, long long num_words) {
+  if (bits <= 0) return;
+  const long long w = at >> 5;
+  const int sh = (int)(at & 31);
+  if (w < num_words) {
+    const long long lo = (long long)((unsigned long long)value << sh) & 0xFFFFFFFFll;
+    if (lo) atomicAdd(&words[w], (unsigned long long)lo);
+  }
+  if (sh > 0 && w + 1 < num_words) {
+    const long long hi = value >> (32 - sh);
+    if (hi) atomicAdd(&words[w + 1], (unsigned long long)hi);
+  }
+}
+
+// Block-wide inclusive scan of one int a thread (THREADS threads); also
+// returns the block's total through `total`.
+__device__ __forceinline__ int block_scan(int x, int* warp_sums, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) {
+    const int s = warp_sums[w];
+    if (w < warp) before += s;
+    total += s;
+  }
+  __syncthreads();  // warp_sums is reused by the next call
+  return x + before;
+}
+
+__global__ void __launch_bounds__(THREADS)
+    emit_tokens_count_kernel(const uint8_t* __restrict__ window,
+                             const int32_t* __restrict__ best_len,
+                             const int32_t* __restrict__ best_off,
+                             const uint8_t* __restrict__ is_tok, const int32_t* __restrict__ lit_cw,
+                             const int32_t* __restrict__ lit_len,
+                             const int32_t* __restrict__ off_cw,
+                             const int32_t* __restrict__ off_len,
+                             long long* __restrict__ chunk_bits, int n, int n_chunks) {
+  __shared__ Codes c;
+  __shared__ int warp_sums[THREADS / 32];
+  const int b = blockIdx.y, tid = threadIdx.x;
+  load_codes(c, lit_cw, lit_len, off_cw, off_len, b);
+  __syncthreads();
+  const int p0 = blockIdx.x * TILE;
+  const int p_end = min(p0 + TILE, n);
+  long long sum = 0;
+  for (int p = p0 + tid; p < p_end; p += THREADS) {
+    const size_t at = (size_t)b * n + p;
+    const Fields f = position_fields(c, is_tok[at], best_len[at], best_off[at], window[at]);
+    sum += f.n1 + f.n2;
+  }
+  // A chunk's widths fit an int: TILE positions of two fields of at most
+  // 15 + 13 code and extra bits each.
+  int total;
+  block_scan((int)sum, warp_sums, total);
+  if (tid == 0) chunk_bits[(size_t)b * n_chunks + blockIdx.x] = total;
+}
+
+__global__ void __launch_bounds__(THREADS)
+    emit_tokens_scan_kernel(long long* __restrict__ chunk_bits,
+                            const int32_t* __restrict__ lit_cw,
+                            const int32_t* __restrict__ lit_len,
+                            unsigned long long* __restrict__ words,
+                            int32_t* __restrict__ total_bits, int n_chunks, long long num_words) {
+  __shared__ long long warp_sums[THREADS / 32];
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  long long* row = chunk_bits + (size_t)b * n_chunks;
+  long long carry = 0;
+  for (int c0 = 0; c0 < n_chunks; c0 += THREADS) {
+    const int i = c0 + tid;
+    const long long v = i < n_chunks ? row[i] : 0;
+    long long x = v;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long y = __shfl_up_sync(FULL, x, d);
+      if (lane >= d) x += y;
+    }
+    if (lane == 31) warp_sums[warp] = x;
+    __syncthreads();
+    long long before = 0, total = 0;
+    for (int w = 0; w < THREADS / 32; ++w) {
+      if (w < warp) before += warp_sums[w];
+      total += warp_sums[w];
+    }
+    if (i < n_chunks) row[i] = carry + before + x - v;  // the chunk's first bit
+    carry += total;
+    __syncthreads();
+  }
+  if (tid == 0) {
+    const int eod_bits = lit_len[(size_t)b * NLIT + EOD];
+    total_bits[b] = (int32_t)(carry + eod_bits);
+    put_field(words + (size_t)b * num_words, lit_cw[(size_t)b * NLIT + EOD], eod_bits, carry,
+              num_words);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+    emit_tokens_write_kernel(const uint8_t* __restrict__ window,
+                             const int32_t* __restrict__ best_len,
+                             const int32_t* __restrict__ best_off,
+                             const uint8_t* __restrict__ is_tok, const int32_t* __restrict__ lit_cw,
+                             const int32_t* __restrict__ lit_len,
+                             const int32_t* __restrict__ off_cw,
+                             const int32_t* __restrict__ off_len,
+                             const long long* __restrict__ chunk_bits,
+                             unsigned long long* __restrict__ words, int n, int n_chunks,
+                             long long num_words) {
+  __shared__ Codes c;
+  __shared__ int warp_sums[THREADS / 32];
+  const int b = blockIdx.y, tid = threadIdx.x;
+  load_codes(c, lit_cw, lit_len, off_cw, off_len, b);
+  __syncthreads();
+  unsigned long long* out = words + (size_t)b * num_words;
+  const int p0 = blockIdx.x * TILE;
+  const int p_end = min(p0 + TILE, n);
+  long long carry = chunk_bits[(size_t)b * n_chunks + blockIdx.x];
+  for (int q = p0; q < p_end; q += THREADS) {  // uniform over the block
+    const int p = q + tid;
+    Fields f = {0, 0, 0, 0};
+    if (p < p_end) {
+      const size_t at = (size_t)b * n + p;
+      f = position_fields(c, is_tok[at], best_len[at], best_off[at], window[at]);
+    }
+    int total;
+    const int incl = block_scan(f.n1 + f.n2, warp_sums, total);
+    const long long at1 = carry + incl - (f.n1 + f.n2);
+    put_field(out, f.v1, f.n1, at1, num_words);
+    put_field(out, f.v2, f.n2, at1 + f.n1, num_words);
+    carry += total;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K14: the (key, index) order of short rows
+// ---------------------------------------------------------------------------
+
+// S <= 32: a warp a row, 8 rows a block.
+__global__ void __launch_bounds__(THREADS)
+    lex_order_warp_kernel(const int32_t* __restrict__ key, long long* __restrict__ out, int B,
+                          int S) {
+  const int row = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+  const int i = threadIdx.x & 31;
+  if (row >= B) return;  // uniform over the warp
+  const int k = i < S ? key[(size_t)row * S + i] : 0;
+  int rank = 0;
+  for (int j = 0; j < S; ++j) {
+    const int kj = __shfl_sync(FULL, k, j);
+    rank += (kj < k) || (kj == k && j < i);
+  }
+  if (i < S) out[(size_t)row * S + rank] = i;
+}
+
+// S > 32: a block a row, a thread a key.
+__global__ void __launch_bounds__(MAX_SORT)
+    lex_order_block_kernel(const int32_t* __restrict__ key, long long* __restrict__ out,
+                           int S) {
+  __shared__ int k_s[MAX_SORT];
+  const int row = blockIdx.x;
+  for (int j = threadIdx.x; j < S; j += blockDim.x) k_s[j] = key[(size_t)row * S + j];
+  __syncthreads();
+  for (int i = threadIdx.x; i < S; i += blockDim.x) {
+    const int k = k_s[i];
+    int rank = 0;
+    for (int j = 0; j < S; ++j) {
+      const int kj = k_s[j];
+      rank += (kj < k) || (kj == k && j < i);
+    }
+    out[(size_t)row * S + rank] = i;
+  }
+}
+
+}  // namespace
+
+extern "C" int zt_prep_lanes(const void* ll, const void* ol, const void* window,
+                             const void* mlens, const void* moffs, const void* length, void* lit,
+                             void* p1, void* p2, void* varlen40, int B, int n, void* stream) {
+  if (B < 0 || n < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    const dim3 grid((n + TILE - 1) / TILE, B);
+    prep_lanes_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)ll, (const int32_t*)ol, (const uint8_t*)window, (const int32_t*)mlens,
+        (const int32_t*)moffs, (const int32_t*)length, (int32_t*)lit, (int32_t*)p1,
+        (int32_t*)p2, (int32_t*)varlen40, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int zt_token_hist(const void* window, const void* lens, const void* offs,
+                             const void* is_tok, void* lit_hist, void* off_hist, int B, int n,
+                             long long lens_lane, long long lens_pos, long long offs_lane,
+                             long long offs_pos, void* stream) {
+  if (B < 0 || n < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    const dim3 grid((n + TILE - 1) / TILE, B);
+    token_hist_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)window, (const int32_t*)lens, (const int32_t*)offs,
+        (const uint8_t*)is_tok, (int32_t*)lit_hist, (int32_t*)off_hist, n, lens_lane, lens_pos,
+        offs_lane, offs_pos);
+  }
+  return (int)cudaGetLastError();
+}
+
+// chunk_bits: B * ceil(n / TILE) int64 of scratch; words (B, num_words)
+// int64, zero on entry.
+extern "C" int zt_emit_tokens(const void* window, const void* best_len, const void* best_off,
+                              const void* is_tok, const void* lit_cw, const void* lit_len,
+                              const void* off_cw, const void* off_len, void* chunk_bits,
+                              void* words, void* total_bits, int B, int n, long long num_words,
+                              void* stream) {
+  if (B < 0 || n < 1 || B > 65535 || num_words < 1) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int n_chunks = (n + TILE - 1) / TILE;
+  const dim3 grid(n_chunks, B);
+  emit_tokens_count_kernel<<<grid, THREADS, 0, st>>>(
+      (const uint8_t*)window, (const int32_t*)best_len, (const int32_t*)best_off,
+      (const uint8_t*)is_tok, (const int32_t*)lit_cw, (const int32_t*)lit_len,
+      (const int32_t*)off_cw, (const int32_t*)off_len, (long long*)chunk_bits, n, n_chunks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  emit_tokens_scan_kernel<<<B, THREADS, 0, st>>>(
+      (long long*)chunk_bits, (const int32_t*)lit_cw, (const int32_t*)lit_len,
+      (unsigned long long*)words, (int32_t*)total_bits, n_chunks, num_words);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  emit_tokens_write_kernel<<<grid, THREADS, 0, st>>>(
+      (const uint8_t*)window, (const int32_t*)best_len, (const int32_t*)best_off,
+      (const uint8_t*)is_tok, (const int32_t*)lit_cw, (const int32_t*)lit_len,
+      (const int32_t*)off_cw, (const int32_t*)off_len, (const long long*)chunk_bits,
+      (unsigned long long*)words, n, n_chunks, num_words);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int zt_lex_order(const void* key, void* out, int B, int S, void* stream) {
+  if (B < 0 || S < 1 || S > MAX_SORT) return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (S <= 32) {
+      const int rows = THREADS / 32;
+      lex_order_warp_kernel<<<(B + rows - 1) / rows, THREADS, 0, st>>>(
+          (const int32_t*)key, (long long*)out, B, S);
+    } else {
+      const int threads = ((S + 31) / 32) * 32;
+      lex_order_block_kernel<<<B, threads, 0, st>>>((const int32_t*)key, (long long*)out, S);
+    }
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,8 +1,10 @@
 """Device stages of the port: symbol maps, suffix arrays, match tables,
 the Huffman bundle, the splitter, the block planner, token emission,
 checksums, and the wrappers of the walk, DP, chain, MK, Kraft, matchlen,
-byte-histogram, RLE-sweep, RLE-statistics and prefix-table kernels. No
-kernel is built at package load (the first CUDA launch builds them all).
+byte-histogram, RLE-sweep, RLE-statistics, prefix-table, DP lane
+preparation, token-histogram, token-emission and short-row order
+kernels. No kernel is built at package load (the first CUDA launch
+builds them all).
 
 The exports are the counterparts of zultra_tpu/ops/__init__.py:17-30
 (``optimize_matches_jax``, the JAX scan DP kept for cross-checks, has
@@ -19,7 +21,8 @@ import threading
 # ``programs`` adds back (``add_launches``) on every replay, so a count is
 # always of launches the device executed.
 KERNEL_NAMES = ("walk", "dp", "chain", "mk12", "kraft", "matchlen", "hist",
-                "rle_sweep", "rle_stats", "prefix_tables")
+                "rle_sweep", "rle_stats", "prefix_tables", "prep_lanes", "token_hist",
+                "emit_tokens", "lex_order")
 _counts = dict.fromkeys(KERNEL_NAMES, 0)
 _counts_lock = threading.Lock()
 _capturing = threading.local()  # .counts: the counts of this thread's capture, or None

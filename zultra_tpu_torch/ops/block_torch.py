@@ -29,7 +29,7 @@ from ..constants import (
     NOFFSETSYMS,
 )
 
-from . import programs
+from . import plan_cuda, programs
 from .chain_cuda import chain_marks
 from .dp_cuda import run_dp
 from .entropy_torch import (
@@ -65,11 +65,22 @@ def token_starts(step: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
 def token_hist(window, lens, offs, length, is_tok=None):
     """Token entropy (accumulate_token_entropy): histogram the literal/
     length and offset symbols of the chain's tokens, EOD += 1. Returns
-    (lit_hist (B, 288), off_hist (B, 32), is_tok)."""
+    (lit_hist (B, 288), off_hist (B, 32), is_tok). Without ``is_tok`` the
+    chain kernel marks the tokens; the histograms are the plain form on a
+    CPU tensor, one launch of the ``token_hist`` kernel (``plan_cuda``)
+    on a CUDA tensor."""
+    if is_tok is None:
+        is_tok = token_starts(torch.where(lens >= MIN_MATCH_SIZE, lens, 1), length)
+    if window.device.type == "cpu":
+        return (*token_hist_plain(window, lens, offs, is_tok), is_tok)
+    return (*plan_cuda.launch_token_hist(window, lens, offs, is_tok), is_tok)
+
+
+def token_hist_plain(window, lens, offs, is_tok):
+    """The histograms of ``token_hist`` as tensor ops (the scatter form of
+    block_jax._token_hist) -> (lit_hist, off_hist)."""
     B, n = window.shape
     is_match = lens >= MIN_MATCH_SIZE
-    if is_tok is None:
-        is_tok = token_starts(torch.where(is_match, lens, 1), length)
     len_sym, _, _ = matchlen_sym_extra_base(torch.clamp(lens - MIN_MATCH_SIZE, 0, 255))
     off_sym, _, _ = offset_sym_extra_base(offset_index(offs))
     sym1 = torch.where(is_tok, torch.where(is_match, len_sym, window.to(I32)), NLITERALSYMS)
@@ -81,7 +92,7 @@ def token_hist(window, lens, offs, length, is_tok=None):
     lit_hist[:, NEODMARKERSYM] += 1
     off_hist = torch.zeros((B, NOFFSETSYMS + 1), dtype=I32, device=window.device)
     off_hist.scatter_add_(1, sym2.to(I64), ones)
-    return lit_hist, off_hist[:, :NOFFSETSYMS].contiguous(), is_tok
+    return lit_hist, off_hist[:, :NOFFSETSYMS].contiguous()
 
 
 def offset_workaround(off_hist: torch.Tensor) -> torch.Tensor:
@@ -135,7 +146,18 @@ def post_optimize(best_len, best_off, window, lit_len, off_len, is_tok):
 def emit_tokens(window, best_len, best_off, lit_cw, lit_len, off_cw, off_len, is_tok):
     """Token emission at bit phase 0: every token's codeword (+ extra
     bits) packed LSB-first into 32-bit words, EOD last. Returns (words
-    (B, n_words) int64 holding uint32 values, total_bits (B,))."""
+    (B, n_words) int64 holding uint32 values, total_bits (B,) int32). A
+    CPU tensor takes the plain form; a CUDA tensor one call of the
+    ``emit_tokens`` kernel (three launches, ``plan_cuda``)."""
+    args = (window, best_len, best_off, lit_cw, lit_len, off_cw, off_len, is_tok)
+    if window.device.type == "cpu":
+        return emit_tokens_plain(*args)
+    return plan_cuda.launch_emit_tokens(*args)
+
+
+def emit_tokens_plain(window, best_len, best_off, lit_cw, lit_len, off_cw, off_len, is_tok):
+    """``emit_tokens`` as tensor ops (block_jax._emit_tokens): an int64
+    cumsum of the field widths and two scatter_adds of the pieces."""
     B, n = window.shape
     dev = window.device
     is_match = is_tok & (best_len >= MIN_MATCH_SIZE)

@@ -46,7 +46,7 @@ import torch
 from ..constants import LEAVE_ALONE_MATCH_SIZE, MIN_MATCH_SIZE, NMATCHES_PER_OFFSET
 
 from .. import _build
-from . import count_launch
+from . import count_launch, plan_cuda
 from .symbol_map import (
     matchlen_sym_extra_base,
     offset_index,
@@ -85,7 +85,15 @@ def prep_lanes(ll, ol, window, mlens, moffs, length):
     """Packed statics for B lanes: ll (B, 288) / ol (B, 32) code
     lengths, window (B, n) uint8, mlens/moffs (B, n, 8) int32, length
     (B,) int32. Returns lit (B, n), p1/p2 (B, n, 8), varlen40 (B, 40),
-    all int32 and contiguous."""
+    all int32 and contiguous. A CPU tensor takes the plain form; a CUDA
+    tensor one launch of the ``prep_lanes`` kernel (``plan_cuda``)."""
+    if window.device.type == "cpu":
+        return prep_lanes_plain(ll, ol, window, mlens, moffs, length)
+    return plan_cuda.launch_prep_lanes(ll, ol, window, mlens, moffs, length)
+
+
+def prep_lanes_plain(ll, ol, window, mlens, moffs, length):
+    """``prep_lanes`` as tensor ops (dp_pallas._prep_lane, vmapped)."""
     B, n = window.shape
     dev = window.device
     idx = torch.arange(n, dtype=I32, device=dev)[None, :]

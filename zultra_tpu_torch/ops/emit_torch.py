@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import MIN_MATCH_SIZE
+from ..constants import MIN_MATCH_SIZE, NLITERALSYMS, NOFFSETSYMS
 from .block_torch import emit_tokens
 from .chain_cuda import chain_marks
 
@@ -53,12 +53,16 @@ def write_tokens(window, best, start: int, end: int, lit_encoder, off_encoder,
     is_tok = chain_marks(step, torch.tensor([start], dtype=I32, device=dev),
                          torch.tensor([end], dtype=I32, device=dev))
 
-    def table(values):
-        return torch.tensor([int(v) for v in values], dtype=I32, device=dev)[None]
+    def table(values, size):
+        """The first ``size`` entries, zero-padded: the (1, 288) and (1, 32)
+        tables ``emit_tokens`` takes (it reads no symbol past 285 or 29)."""
+        row = [int(v) for v in values][:size]
+        return torch.tensor(row + [0] * (size - len(row)), dtype=I32, device=dev)[None]
 
     words, total_bits = emit_tokens(
-        win, best_len, best_off, table(lit_encoder.code_word), table(lit_encoder.code_length),
-        table(off_encoder.code_word), table(off_encoder.code_length), is_tok)
+        win, best_len, best_off, table(lit_encoder.code_word, NLITERALSYMS),
+        table(lit_encoder.code_length, NLITERALSYMS), table(off_encoder.code_word, NOFFSETSYMS),
+        table(off_encoder.code_length, NOFFSETSYMS), is_tok)
     total_bits = int(total_bits[0])
     nbytes = (total_bits + 7) // 8
     raw = words[0].cpu().numpy().astype(np.uint32).view(np.uint8)[:nbytes].copy()

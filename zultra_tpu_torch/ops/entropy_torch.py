@@ -7,8 +7,9 @@ Port of zultra_tpu.ops.entropy_jax in the configuration the JAX package
 runs on a TPU (``_mk_impl() == "pallas"``): the sequential MK merge and
 parent-chain phases and the Kraft lengthen/shorten sweeps go through the
 kernels of ``mk_cuda`` (plain loops on CPU tensors), every histogram of
-the batch a lane; the sorts, MK phase 3's closed form and the scatters
-back to symbol order are tensor ops around them. The Zopfli rewrite's
+the batch a lane, and the (key, index) sorts through the ``lex_order``
+kernel of ``plan_cuda``; MK phase 3's closed form and the scatters back
+to symbol order are tensor ops around them. The Zopfli rewrite's
 decision sweep and the RLE statistics (every mask of the CL-mask search
 in one launch a mode) go through the kernels of ``rle_cuda``. Reference
 semantics:
@@ -23,7 +24,7 @@ import torch
 
 from ..constants import NCODELENSYMS, NLITERALSYMS, NOFFSETSYMS
 
-from . import mk_cuda
+from . import mk_cuda, plan_cuda
 from .rle_cuda import optimize_for_rle, rle_bits_masks, rle_histogram_masks  # noqa: F401
 from .tables import MASK_ORDER, device_tables
 
@@ -51,7 +52,15 @@ def _scatter_dump(shape, dev, idx, src, reduce, fill=0):
 
 def _lex_order(key: torch.Tensor) -> torch.Tensor:
     """Indices sorting ``key`` ascending along dim 1, ties broken by
-    index: the order of lax.sort((key, iota), num_keys=2)."""
+    index: the order of lax.sort((key, iota), num_keys=2). A CPU tensor
+    takes the plain form; a CUDA tensor one launch of the ``lex_order``
+    kernel (``plan_cuda``)."""
+    if key.device.type == "cpu":
+        return _lex_order_plain(key)
+    return plan_cuda.launch_lex_order(key)
+
+
+def _lex_order_plain(key: torch.Tensor) -> torch.Tensor:
     return torch.sort(key, dim=1, stable=True)[1]
 
 

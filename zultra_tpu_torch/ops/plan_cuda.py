@@ -1,0 +1,405 @@
+"""The block planner's fused per-position passes (kernels ``csrc/plan.cu``)
+and plain models of the kernels' schedules.
+
+Four kernels, each the card's form of a function whose plain PyTorch
+version stays in its own module (a CPU tensor takes that form; a CUDA
+tensor reaches the launches here or raises):
+
+- K11 ``prep_lanes`` (``dp_cuda.prep_lanes``; JAX
+  ``dp_pallas._prep_lane``): the DP's packed statics lit, p1, p2 and
+  varlen40. One launch: a block per (lane, TILE positions), a thread per
+  (position, slot) element.
+- K12 ``token_hist`` (``block_torch.token_hist`` given the token marks;
+  JAX ``block_jax._token_hist``): the literal/length and offset symbol
+  histograms of a lane's tokens, EOD += 1. One launch: a block per (lane,
+  TILE positions) counts in shared memory and adds its nonzero bins into
+  the lane's rows with integer atomics.
+- K13 ``emit_tokens`` (``block_torch.emit_tokens``; JAX
+  ``block_jax._emit_tokens``): every token's codeword and extra bits
+  packed LSB-first into words, EOD last. Three launches: count (each
+  chunk of TILE positions sums its fields' widths), scan (a block a lane:
+  each chunk's first bit, the total bits and the EOD field), write (each
+  chunk scans its positions, THREADS at a time, and adds every field's
+  one or two 32-bit pieces into the zeroed words with atomics).
+- K14 ``lex_order`` (``entropy_torch._lex_order``; the ``lax.sort((key,
+  iota), num_keys=2)`` of ``entropy_jax``): the indices that sort each
+  row by (key, index), by rank counting: key i goes to #{j: k_j < k_i} +
+  #{j < i: k_j == k_i}. A warp a row for S <= 32, else a block a row.
+
+Every launch runs on the current stream, allocates nothing and waits on
+nothing, so the planner's CUDA graph (``ops/programs.py``) records it;
+outputs and scratch come from torch. Each wrapper adds one to its
+kernel's launch count a call (``emit_tokens`` makes three launches a
+call, as ``dp`` does).
+
+The models (``*_model``) run each schedule in numpy on CPU tensors, with
+the kernels' closed-form symbol maps (floor(log2(x)) by the bit search
+that ``31 - __clz(x)`` computes), and return counters of what the
+schedule met; ``tests/test_torch_planner_fusions.py`` holds them against
+the plain forms and the JAX functions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from . import count_launch
+
+THREADS = 256  # threads a block (csrc/plan.cu)
+TILE = 4096  # positions a block of the per-position kernels
+SLOTS = 8  # match slots a position
+NLIT, NOFF, EOD = 288, 32, 256
+MIN_MATCH, LEAVE_ALONE = 3, 40
+N_SHORT = LEAVE_ALONE - MIN_MATCH
+INF16 = 0x7FFF
+BIG = 1 << 30
+MAX_SORT = 1024  # keys a lex_order row
+MAX_LANES = 65535  # lanes a launch of the per-position kernels (the grid's y)
+I32 = torch.int32
+I64 = torch.int64
+U8 = torch.uint8
+
+
+def _lanes(name: str, B: int, n: int) -> None:
+    if B > MAX_LANES or n < 1:
+        raise ValueError(f"{name}: {B} lanes of {n} positions; the kernel takes up to "
+                         f"{MAX_LANES} lanes of at least one position")
+
+
+# ---------------------------------------------------------------------------
+# The launches
+# ---------------------------------------------------------------------------
+
+
+def launch_prep_lanes(ll, ol, window, mlens, moffs, length):
+    """K11 on CUDA tensors: (lit (B, n), p1, p2 (B, n, 8), varlen40 (B,
+    40)), all int32."""
+    _build.check_cuda("prep_lanes ll", ll, I32, 2)
+    _build.check_cuda("prep_lanes ol", ol, I32, 2)
+    _build.check_cuda("prep_lanes window", window, U8, 2)
+    _build.check_cuda("prep_lanes mlens", mlens, I32, 3)
+    _build.check_cuda("prep_lanes moffs", moffs, I32, 3)
+    _build.check_cuda("prep_lanes length", length, I32, 1)
+    B, n = window.shape
+    if (ll.shape != (B, NLIT) or ol.shape != (B, NOFF) or mlens.shape != (B, n, SLOTS)
+            or moffs.shape != mlens.shape or length.shape != (B,)):
+        raise ValueError("prep_lanes: inconsistent input shapes")
+    _lanes("prep_lanes", B, n)
+    dev = window.device
+    lit = torch.empty((B, n), dtype=I32, device=dev)
+    p1 = torch.empty((B, n, SLOTS), dtype=I32, device=dev)
+    p2 = torch.empty((B, n, SLOTS), dtype=I32, device=dev)
+    varlen40 = torch.empty((B, 40), dtype=I32, device=dev)
+    _build.launch("zt_prep_lanes", ll.data_ptr(), ol.data_ptr(), window.data_ptr(),
+                  mlens.data_ptr(), moffs.data_ptr(), length.data_ptr(), lit.data_ptr(),
+                  p1.data_ptr(), p2.data_ptr(), varlen40.data_ptr(), B, n)
+    count_launch("prep_lanes")
+    return lit, p1, p2, varlen40
+
+
+def _strided_i32(name, t, B, n):
+    """A (B, n) int32 CUDA view of any strides (the planner passes the
+    match tables' first slot, a view of stride 8)."""
+    if not t.is_cuda or t.dtype != I32 or t.shape != (B, n):
+        raise ValueError(f"{name}: expected a CUDA int32 tensor of shape {(B, n)}, got "
+                         f"{t.device} {t.dtype} {tuple(t.shape)}")
+
+
+def launch_token_hist(window, lens, offs, is_tok):
+    """K12 on CUDA tensors: (lit_hist (B, 288), off_hist (B, 32)) int32.
+    ``lens`` and ``offs`` may be strided views."""
+    _build.check_cuda("token_hist window", window, U8, 2)
+    _build.check_cuda("token_hist is_tok", is_tok, torch.bool, 2)
+    B, n = window.shape
+    _strided_i32("token_hist lens", lens, B, n)
+    _strided_i32("token_hist offs", offs, B, n)
+    if is_tok.shape != (B, n):
+        raise ValueError("token_hist: inconsistent input shapes")
+    _lanes("token_hist", B, n)
+    lit_hist = torch.zeros((B, NLIT), dtype=I32, device=window.device)
+    off_hist = torch.zeros((B, NOFF), dtype=I32, device=window.device)
+    _build.launch("zt_token_hist", window.data_ptr(), lens.data_ptr(), offs.data_ptr(),
+                  is_tok.data_ptr(), lit_hist.data_ptr(), off_hist.data_ptr(), B, n,
+                  lens.stride(0), lens.stride(1), offs.stride(0), offs.stride(1))
+    count_launch("token_hist")
+    return lit_hist, off_hist
+
+
+def num_words(n: int) -> int:
+    """Words a lane of n positions is emitted into (block_jax._emit_tokens)."""
+    return (16 * n + 64) // 32 + 2
+
+
+def launch_emit_tokens(window, best_len, best_off, lit_cw, lit_len, off_cw, off_len, is_tok):
+    """K13 on CUDA tensors: (words (B, num_words(n)) int64 holding uint32
+    values, total_bits (B,) int32)."""
+    _build.check_cuda("emit_tokens window", window, U8, 2)
+    _build.check_cuda("emit_tokens is_tok", is_tok, torch.bool, 2)
+    B, n = window.shape
+    for name, t in (("best_len", best_len), ("best_off", best_off)):
+        _build.check_cuda(f"emit_tokens {name}", t, I32, 2)
+    for name, t, S in (("lit_cw", lit_cw, NLIT), ("lit_len", lit_len, NLIT),
+                       ("off_cw", off_cw, NOFF), ("off_len", off_len, NOFF)):
+        _build.check_cuda(f"emit_tokens {name}", t, I32, 2)
+        if t.shape != (B, S):
+            raise ValueError(f"emit_tokens: {name} has shape {tuple(t.shape)}, not {(B, S)}")
+    if best_len.shape != (B, n) or best_off.shape != (B, n) or is_tok.shape != (B, n):
+        raise ValueError("emit_tokens: inconsistent input shapes")
+    _lanes("emit_tokens", B, n)
+    dev = window.device
+    nw = num_words(n)
+    words = torch.zeros((B, nw), dtype=I64, device=dev)
+    total_bits = torch.empty((B,), dtype=I32, device=dev)
+    chunk_bits = torch.empty((B, -(-n // TILE)), dtype=I64, device=dev)
+    _build.launch("zt_emit_tokens", window.data_ptr(), best_len.data_ptr(), best_off.data_ptr(),
+                  is_tok.data_ptr(), lit_cw.data_ptr(), lit_len.data_ptr(), off_cw.data_ptr(),
+                  off_len.data_ptr(), chunk_bits.data_ptr(), words.data_ptr(),
+                  total_bits.data_ptr(), B, n, nw)
+    count_launch("emit_tokens")
+    return words, total_bits
+
+
+def launch_lex_order(key):
+    """K14 on a CUDA tensor: key (B, S) int32, 1 <= S <= 1024 -> (B, S)
+    int64, the indices sorting each row by (key, index)."""
+    _build.check_cuda("lex_order key", key, I32, 2)
+    B, S = key.shape
+    if not 1 <= S <= MAX_SORT:
+        raise ValueError(f"lex_order: rows of {S} keys, the kernel takes 1..{MAX_SORT}")
+    out = torch.empty((B, S), dtype=I64, device=key.device)
+    _build.launch("zt_lex_order", key.data_ptr(), out.data_ptr(), B, S)
+    count_launch("lex_order")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The kernels' arithmetic in numpy
+# ---------------------------------------------------------------------------
+
+
+def floor_log2(x: np.ndarray) -> np.ndarray:
+    """floor(log2(x)) for int x >= 1 by a binary search over the bits,
+    which is what 31 - clz(x) computes."""
+    x = np.asarray(x, np.int64).copy()
+    r = np.zeros_like(x)
+    for s in (16, 8, 4, 2, 1):
+        hit = x >= (1 << s)
+        r += np.where(hit, s, 0)
+        x = np.where(hit, x >> s, x)
+    return r
+
+
+def len_symbol(e: np.ndarray):
+    """(symbol, extra bits, base) of encoded lengths e in 0..255."""
+    e = np.asarray(e, np.int64)
+    k = np.maximum(floor_log2(np.maximum(e, 1)), 2)
+    q = e >> (k - 2)
+    sym = np.where(e < 8, 257 + e, np.where(e == 255, 285, 249 + 4 * k + q))
+    extra = np.where((e < 8) | (e == 255), 0, k - 2)
+    base = np.where(e < 8, e, np.where(e == 255, 255, q << (k - 2)))
+    return sym, extra, base
+
+
+def offset_index(off: np.ndarray) -> np.ndarray:
+    raw = np.maximum(np.asarray(off, np.int64) - 1, 0)
+    return np.clip(np.where(raw < 256, raw, 256 + ((raw - 256) >> 7)), 0, 511)
+
+
+def off_symbol(oidx: np.ndarray):
+    """(symbol, extra bits, base) of offset indices 0..511."""
+    oidx = np.asarray(oidx, np.int64)
+    j = np.where(oidx < 256, oidx, ((oidx - 256) << 7) + 256)
+    k = np.maximum(floor_log2(np.maximum(j, 1)), 1)
+    bit = (j >> (k - 1)) & 1
+    low = j < 4
+    return (np.where(low, j, 2 * k + bit), np.where(low, 0, k - 1),
+            np.where(low, j + 1, ((2 + bit) << (k - 1)) + 1))
+
+
+def _pick(table: np.ndarray, sym: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    """table[b, sym[b, ...]] for sym in [lo, hi), else 0."""
+    inside = (sym >= lo) & (sym < hi)
+    idx = np.where(inside, sym, lo).reshape(sym.shape[0], -1)
+    got = np.take_along_axis(table.astype(np.int64), idx, axis=1).reshape(sym.shape)
+    return np.where(inside, got, 0)
+
+
+def _i32(x: np.ndarray) -> np.ndarray:
+    """int64 values wrapped to int32, as the kernels' int arithmetic wraps."""
+    return ((np.asarray(x, np.int64) + 2**31) % 2**32 - 2**31).astype(np.int32)
+
+
+def _np(*tensors):
+    return [t.cpu().numpy() for t in tensors]
+
+
+# ---------------------------------------------------------------------------
+# Models of the schedules
+# ---------------------------------------------------------------------------
+
+
+def prep_lanes_model(ll, ol, window, mlens, moffs, length, tile=TILE):
+    """K11's schedule: for each (lane, tile of ``tile`` positions), every
+    (position, slot) element from the lane's tables -> (lit, p1, p2,
+    varlen40) int32 tensors and {"tiles": blocks run}."""
+    ll, ol, window, mlens, moffs, length = _np(ll, ol, window, mlens, moffs, length)
+    B, n = window.shape
+    lit = np.zeros((B, n), np.int64)
+    p1 = np.zeros((B, n, SLOTS), np.int64)
+    p2 = np.zeros((B, n, SLOTS), np.int64)
+    tiles = 0
+    for b in range(B):
+        for p0 in range(0, n, tile):
+            tiles += 1
+            pos = np.arange(p0, min(p0 + tile, n))
+            ln = int(length[b])
+            lit[b, pos] = np.where(pos < ln, ll[b][window[b, pos]], 0)
+            ml = mlens[b, pos].astype(np.int64)
+            clamped = np.minimum(ml, np.maximum(ln - pos, 0)[:, None])
+            osym, oextra, _ = off_symbol(offset_index(moffs[b, pos]))
+            osize = _pick(ol[b : b + 1], osym[None], 0, 30)[0] + oextra
+            valid = ml >= MIN_MATCH
+            is_long = valid & (ml >= LEAVE_ALONE)
+            is_short = valid & (ml < LEAVE_ALONE)
+            p1[b, pos] = (np.where(is_short, clamped, 0) << 16) | np.where(is_short, osize, INF16)
+            e = clamped - MIN_MATCH
+            e = np.where((e < 0) | (e > 255), 255, e)
+            lsym, lextra, _ = len_symbol(e)
+            varlen_e = _pick(ll[b : b + 1], lsym[None], 257, 286)[0] + lextra
+            p2[b, pos] = ((np.where(is_long, clamped, 0) << 16)
+                          | np.where(is_long, varlen_e + osize, INF16))
+    sym, extra, _ = len_symbol(np.arange(N_SHORT))
+    varlen40 = np.concatenate([ll[:, sym] + extra[None, :], np.full((B, 3), BIG)], axis=1)
+    out = [torch.from_numpy(_i32(a)) for a in (lit, p1, p2, varlen40)]
+    return (*out, {"tiles": tiles})
+
+
+def _token_symbols(window, lens, offs):
+    """Each position's (literal/length symbol, offset symbol or -1)."""
+    is_match = lens >= MIN_MATCH
+    lsym, _, _ = len_symbol(np.clip(lens.astype(np.int64) - MIN_MATCH, 0, 255))
+    osym, _, _ = off_symbol(offset_index(offs))
+    return (np.where(is_match, lsym, window.astype(np.int64)), np.where(is_match, osym, -1))
+
+
+def token_hist_model(window, lens, offs, is_tok, tile=TILE, order_seed=0):
+    """K12's schedule: each (lane, tile) block's partial histograms,
+    added into the lane's rows in a seeded random block order (the
+    atomics' order is the card's to choose), EOD from each lane's first
+    block -> (lit_hist, off_hist, {"blocks": blocks run})."""
+    window, lens, offs, is_tok = _np(window, lens, offs, is_tok)
+    B, n = window.shape
+    lit = np.zeros((B, NLIT), np.int64)
+    off = np.zeros((B, NOFF), np.int64)
+    blocks = [(b, p0) for b in range(B) for p0 in range(0, n, tile)]
+    np.random.default_rng(order_seed).shuffle(blocks)
+    for b, p0 in blocks:
+        sl = slice(p0, min(p0 + tile, n))
+        s1, s2 = _token_symbols(window[b, sl], lens[b, sl], offs[b, sl])
+        tok = is_tok[b, sl]
+        h_lit = np.bincount(s1[tok], minlength=NLIT)
+        h_off = np.bincount(s2[tok & (s2 >= 0)], minlength=NOFF)
+        if p0 == 0:
+            h_lit[EOD] += 1
+        lit[b] += h_lit
+        off[b] += h_off
+    return (torch.from_numpy(_i32(lit)), torch.from_numpy(_i32(off)),
+            {"blocks": len(blocks)})
+
+
+def emit_fields(window, best_len, best_off, lit_cw, lit_len, off_cw, off_len, is_tok):
+    """Numpy (B, n) arrays of each position's two fields: (v1, n1, v2,
+    n2), int64, as csrc/plan.cu's ``position_fields``."""
+    is_match = is_tok & (best_len >= MIN_MATCH)
+    e = np.clip(best_len.astype(np.int64) - MIN_MATCH, 0, 255)
+    ls, le, lb = len_symbol(e)
+    os_, oe, ob = off_symbol(offset_index(best_off))
+    ls_len = _pick(lit_len, ls, 257, 286)
+    os_len = _pick(off_len, os_, 0, 30)
+    byte = window.astype(np.int64)
+    m1_v = _pick(lit_cw, ls, 257, 286) | ((e - lb) << ls_len)
+    m2_v = _pick(off_cw, os_, 0, 30) | ((best_off.astype(np.int64) - ob) << os_len)
+    lit_v = np.take_along_axis(lit_cw.astype(np.int64), byte, axis=1)
+    lit_n = np.take_along_axis(lit_len.astype(np.int64), byte, axis=1)
+    v1 = np.where(is_match, m1_v, np.where(is_tok, lit_v, 0))
+    n1 = np.where(is_match, ls_len + le, np.where(is_tok, lit_n, 0))
+    return v1, n1, np.where(is_match, m2_v, 0), np.where(is_match, os_len + oe, 0)
+
+
+def _put(words, value, bits, at, writers, chunk, stats):
+    """csrc/plan.cu's ``put_field`` on one lane's Python-int words; records
+    which chunk wrote each word."""
+    if bits <= 0:
+        return
+    nw = len(words)
+    w, sh = at >> 5, at & 31
+    stats["straddle_word"] += int(sh > 0 and sh + bits > 32)
+    if w < nw:
+        words[w] += (value << sh) & 0xFFFFFFFF
+        writers.setdefault(w, set()).add(chunk)
+    if sh > 0 and w + 1 < nw:
+        words[w + 1] += value >> (32 - sh)
+        writers.setdefault(w + 1, set()).add(chunk)
+
+
+def emit_tokens_model(window, best_len, best_off, lit_cw, lit_len, off_cw, off_len, is_tok,
+                      tile=TILE, threads=THREADS):
+    """K13's three launches: count (each chunk of ``tile`` positions sums
+    its widths), scan (each chunk's first bit from the sums before it,
+    then the total and the EOD field), write (each chunk walks its
+    positions ``threads`` at a time, an inclusive scan a step plus the
+    carry, and adds every field into the words) -> (words (B,
+    num_words(n)) int64, total_bits (B,) int32, counters: chunks, chunks
+    whose first bit is not on a word edge, fields that straddle a word
+    edge, words that two chunks (or a chunk and the EOD) add into)."""
+    arrs = _np(window, best_len, best_off, lit_cw, lit_len, off_cw, off_len, is_tok)
+    v1, n1, v2, n2 = emit_fields(*arrs)
+    B, n = arrs[0].shape
+    nw = num_words(n)
+    nc = -(-n // tile)
+    widths = n1 + n2
+    stats = dict.fromkeys(("chunks", "unaligned_chunks", "straddle_word", "shared_words"), 0)
+    words_out = np.zeros((B, nw), np.int64)
+    total = np.zeros(B, np.int64)
+    for b in range(B):
+        # count, then scan: each chunk's first bit.
+        sums = [int(widths[b, c * tile : (c + 1) * tile].sum()) for c in range(nc)]
+        first = [sum(sums[:c]) for c in range(nc)]
+        words, writers = [0] * nw, {}
+        for c in range(nc):  # write
+            stats["chunks"] += 1
+            stats["unaligned_chunks"] += int(first[c] % 32 != 0)
+            carry = first[c]
+            end = min((c + 1) * tile, n)
+            for q in range(c * tile, end, threads):
+                w_q = [int(x) for x in widths[b, q : min(q + threads, end)]]
+                incl = np.cumsum(w_q).tolist()
+                for i, p in enumerate(range(q, q + len(w_q))):
+                    at = carry + incl[i] - w_q[i]
+                    _put(words, int(v1[b, p]), int(n1[b, p]), at, writers, c, stats)
+                    _put(words, int(v2[b, p]), int(n2[b, p]), at + int(n1[b, p]), writers, c,
+                         stats)
+                carry += incl[-1]
+        eod_bits = int(arrs[4][b, EOD])
+        total[b] = sum(sums) + eod_bits
+        _put(words, int(arrs[3][b, EOD]), eod_bits, sum(sums), writers, nc, stats)
+        stats["shared_words"] += sum(len(s) > 1 for s in writers.values())
+        words_out[b] = [(x + 2**63) % 2**64 - 2**63 for x in words]  # int64 adds wrap
+    return torch.from_numpy(words_out), torch.from_numpy(_i32(total)), stats
+
+
+def lex_order_model(key):
+    """K14's rank count -> ((B, S) int64 order, {"rows", "ties"}): key i
+    goes to #{j: k_j < k_i} + #{j < i: k_j == k_i}; ``ties`` counts the
+    pairs of equal keys that the index ordered."""
+    k = key.cpu().numpy().astype(np.int64)
+    B, S = k.shape
+    below = k[:, None, :] < k[:, :, None]  # [b, i, j]: k_j < k_i
+    tie = (k[:, None, :] == k[:, :, None]) & (np.arange(S)[None, :] < np.arange(S)[:, None])[None]
+    rank = below.sum(axis=2) + tie.sum(axis=2)
+    out = np.zeros((B, S), np.int64)
+    np.put_along_axis(out, rank, np.broadcast_to(np.arange(S), (B, S)), axis=1)
+    assert (np.sort(rank, axis=1) == np.arange(S)[None, :]).all()  # a permutation
+    return torch.from_numpy(out), {"rows": B, "ties": int(tie.sum())}

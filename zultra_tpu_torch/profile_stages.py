@@ -24,7 +24,9 @@ number, the graph pool's bytes, each one's capture ms, and each one
 replayed against an eager call of its function on the untraced call's
 inputs (equal; the replay's device ms by events). The eager run splits
 the match tables into the upload, the segments, the 8 stored doubling
-rounds and the rounds past them, the LCP, the walk and the lanes. Last,
+rounds and the rounds past them, the LCP, the walk and the lanes, and the
+block plans into their passes (the DP into its lane preparation and the
+DP kernel). Last,
 for every device batch of every golden case: the round after which the
 ranks were distinct (where the early exit would stop), the rounds past 8
 alone and the match program's replay (device ms by events).
@@ -69,6 +71,7 @@ from . import cli, device_pipeline
 from .corpus import case_inputs
 from .ops import (
     block_torch,
+    dp_cuda,
     entropy_torch,
     launch_counts,
     matchfinder_torch,
@@ -106,6 +109,8 @@ SUBSTAGES = [
     (block_torch, "dynamic_cost", "block plans: dynamic_cost"),
     (block_torch, "build_lengths", "block plans: build_lengths"),
     (block_torch, "run_dp", "block plans: DP"),
+    (dp_cuda, "prep_lanes", "block plans: DP: prep_lanes"),
+    (dp_cuda, "dp_choices", "block plans: DP: the DP kernel"),
     (block_torch, "post_optimize", "block plans: post_optimize"),
     (block_torch, "dynamic_cost_given", "block plans: dynamic_cost_given"),
     (block_torch, "optimize_for_rle", "block plans: optimize_for_rle"),
