@@ -58,13 +58,24 @@ case in windows mode across 2 spawned gloo ranks on ``cuda:0``
 (``parallel.multihost.run_windows_distributed``), corpus statistics of the
 4 MiB corpus (``parallel.sharded_corpus_stats``: suffix arrays, the byte
 histogram kernel, Adler partial sums) with the checksums against zlib, and
-``ops.emit_torch.write_tokens`` on one block of the gzip case's plan. Each
+``ops.emit_torch.write_tokens`` on one block of the gzip case's plan. Then
+the sharded phase: the staircase match finder on the gzip case's segments
+at 64 KiB cores (equal to the walk kernel's rows on every segment that does
+not overflow and to its own CPU run on two segments; ms a segment against
+the walk's), ``parallel.compress_sharded`` on the gzip and dictionary cases
+over ``["cuda:0"]`` and ``["cuda:0", "cuda:0"]`` (a first call and a
+replay each) and on a zero-heavy input whose segments overflow (equal to
+``compress_device``'s bytes), ``ops.optimize_matches`` on a 1 MiB block
+against its CPU run, the phase's peak memory reserved, the graphs held
+after it, and a gzip one-shot run that must replay its graphs. Each
 compression must
 rebuild the recorded input (sha256), match the recorded output digest
 (what zultra_tpu writes on its native engine), decode with zlib, and
 launch all twelve compression kernels, counted from 0 just before each run
 (the statistics phase the histogram kernel, ``write_tokens`` the chain
-kernel; the ranks of the distributed run report their own counts). Prints
+kernel; the ranks of the distributed run report their own counts; a
+sharded compression the eleven planner and splitter kernels, and the walk
+where a segment overflowed). Prints
 the card's name and power limit, one line per phase, a JSON line of
 kernel results and, last, {"ok": true, "device": {...}}. Exits non-zero
 on any failure, and before printing any result when no CUDA device is
@@ -888,11 +899,148 @@ def main() -> int:
           f"peak reserved {torch.cuda.max_memory_reserved()} B; the capturing gzip run's "
           f"launches equal the eager first run's ({eager_counts}); on {smi}")
 
+    by_name = {case["name"]: case for case in golden}
+
+    # -- sharded: the staircase match finder, compress_sharded, optimize_matches
+    # The staircase on the gzip case's segments at compress_sharded's 64 KiB
+    # cores: equal to the walk's rows on every segment that does not
+    # overflow, and to its own CPU run on two segments; ms a segment of the
+    # staircase program's replay and of the walk (with and without its
+    # suffix arrays), by events. Then compress_sharded on the gzip and
+    # dictionary cases over one and two devices (a first call and a replay
+    # each), a zero-heavy input whose segments overflow (against
+    # compress_device), and optimize_matches on a 1 MiB block against its
+    # CPU run. Each compression runs with the counts set to 0 just before.
+    from zultra_tpu_torch.constants import (static_literal_code_lengths,
+                                            static_offset_code_lengths)
+    from zultra_tpu_torch.ops import parse_torch, staircase_torch
+    from zultra_tpu_torch.parallel import compress_sharded
+
+    torch.cuda.reset_peak_memory_stats()
+    core = staircase_torch.STAIRCASE_CORE
+    segbufs, _ = matchfinder_torch.build_segments(corpus, spans, core)
+    seg_dev = torch.from_numpy(segbufs).to(dev)
+    stats0 = dict(staircase_torch.FALLBACK_STATS)
+    st_rows = staircase_torch.sharded_rows(segbufs, [dev], 16, core)
+    stats1 = dict(staircase_torch.FALLBACK_STATS)
+    n_seg = stats1["segments"] - stats0["segments"]
+    n_over = stats1["overflowed"] - stats0["overflowed"]
+    walked = walk_cuda.walk_segments(matchfinder_torch.salcp_batch(seg_dev), HALO, core)
+    batch = staircase_torch.PROGRAM_SEGMENTS  # the program's shape: replays
+    lens_s, offs_s, over_s = (torch.cat(x) for x in zip(*(
+        staircase_torch.staircase_segments(seg_dev[i : i + batch], 16, HALO, core)
+        for i in range(0, len(segbufs), batch))))
+    ok = ~over_s
+    compare("staircase against the walk (lengths)", lens_s[ok], walked[ok] >> 16)
+    compare("staircase against the walk (offsets)", offs_s[ok], walked[ok] & 0xFFFF)
+    compare("staircase rows with the overflows walked", st_rows, walked)
+    cpu_two = staircase_torch.staircase_segments(seg_dev[:2].cpu(), 16, HALO, core)
+    for label, g, w in zip(("lengths", "offsets", "overflow"), (lens_s, offs_s, over_s), cpu_two):
+        compare(f"staircase on the card against its CPU run ({label})", g[:2], w)
+    # ms a segment at the program's batch (replays) and at 32 segments a
+    # call (an eager call of the program's function), beside the walk on
+    # the same segments at each batch and on all of them in one call (as
+    # the match program walks a batch), with and without its suffix arrays.
+    per_seg = {}
+    for b in (batch, 32):
+        if b == batch:
+            per_seg["staircase", b] = cuda_ms(lambda: staircase_torch.staircase_segments(
+                seg_dev[:b], 16, HALO, core), 3) / b
+        else:
+            per_seg["staircase", b] = cuda_ms(lambda: staircase_torch.staircase_program(
+                seg_dev[:b], budget_factor=16, core_off=HALO, core_len=core), 3) / b
+    for b in (batch, 32, len(segbufs)):
+        salcp = matchfinder_torch.salcp_batch(seg_dev[:b])
+        per_seg["walk", b] = cuda_ms(lambda: walk_cuda.walk_segments(salcp, HALO, core), 3) / b
+        per_seg["walk with suffix arrays", b] = cuda_ms(lambda: walk_cuda.walk_segments(
+            matchfinder_torch.salcp_batch(seg_dev[:b]), HALO, core), 3) / b
+    del salcp, walked, lens_s, offs_s, st_rows, seg_dev
+    print(f"staircase: gzip case, {n_seg} segments of {segbufs.shape[1]} words ({core} core), "
+          f"{n_over} overflowed; rows equal to the walk's on every segment that does not "
+          f"overflow and to its CPU run on two; ms a segment (events), by segments a call: "
+          + "; ".join(f"{k} at {b} {v:.4f}" for (k, b), v in per_seg.items())
+          + "; ratio staircase / walk with suffix arrays " + ", ".join(
+              f"{per_seg['staircase', b] / per_seg['walk with suffix arrays', b]:.2f} at {b}"
+              for b in (batch, 32)) + f"; on {smi}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    sharded_kernels = tuple(k for k in COMPRESS_KERNELS if k != "walk")
+    for name in ("gzip", "dictionary"):
+        case = by_name[name]
+        d, dictionary = inputs[name]
+        for devs in (["cuda:0"], ["cuda:0", "cuda:0"]):
+            times = []
+            for _ in range(2):  # a first call, then a replay of its programs
+                reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = compress_sharded(d, devs, case["flags"], case["block_size"],
+                                       dictionary=dictionary)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                got_counts = path_counts(f"sharded {name}", launch_counts(), sharded_kernels)
+                check_output(f"sharded {name} {devs}", case, d, dictionary, out)
+            print(f"compress_sharded {name} {devs}: {len(d)} B equal to the golden digest, "
+                  f"decodes; first call {times[0]:.3f} s, replay {times[1]:.3f} s "
+                  f"({len(d) / 1e6 / times[1]:.3f} MB/s; one-shot {first[name][0]:.3f} s) on "
+                  f"{smi}; launches {got_counts}")
+
+    zero_heavy = data[: 1 << 18] + bytes(1 << 19) + data[1 << 18 : 1 << 19]
+    stats0 = dict(staircase_torch.FALLBACK_STATS)
+    reset_launch_counts()
+    out = compress_sharded(zero_heavy, ["cuda:0", "cuda:0"], 2)
+    got_counts = path_counts("sharded zero-heavy", launch_counts())
+    over = staircase_torch.FALLBACK_STATS["overflowed"] - stats0["overflowed"]
+    if over <= 0:
+        raise SystemExit("sharded zero-heavy: no segment overflowed its membership budget")
+    if out != compress_device(zero_heavy, 2, device=dev) or zlib.decompress(out, 31) != zero_heavy:
+        raise SystemExit("sharded zero-heavy: not equal to compress_device's bytes")
+    print(f"compress_sharded zero-heavy: {len(zero_heavy)} B ({1 << 19} B of zeros), "
+          f"{over} of {staircase_torch.FALLBACK_STATS['segments'] - stats0['segments']} "
+          f"segments overflowed and were walked, equal to compress_device's bytes, decodes; "
+          f"launches {got_counts}")
+
+    window = corpus[: HALO + (1 << 20)]
+    table = matchfinder_torch.match_table(window, HALO, len(window), dev)
+    job = (static_literal_code_lengths(), static_offset_code_lengths(), window, table, HALO,
+           len(window))
+    got = parse_torch.optimize_matches(*job, device=dev)
+    want, plain = host_ms(lambda: parse_torch.optimize_matches(*job, device="cpu"))
+    if not np.array_equal(got, want):
+        raise SystemExit("optimize_matches: the card's choices differ from the CPU run's")
+    om_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        om_ms.append(host_ms(lambda: parse_torch.optimize_matches(*job, device=dev))[1])
+    print(f"optimize_matches: one 1 MiB block after 32 KiB of history (the fixed Huffman "
+          f"code lengths), equal to its CPU run; {min(om_ms):.2f} ms (host clock, best of 3: "
+          f"{', '.join(f'{t:.2f}' for t in om_ms)}), CPU {plain:.1f} ms, on {smi}")
+    print(f"sharded phase: peak reserved {torch.cuda.max_memory_reserved()} B over the "
+          f"compressions and optimize_matches (after the staircase timings); on {smi}")
+
+    # The one-shot's graphs after the sharded phase: still captured, and a
+    # gzip run replays them (captures nothing new, launches what it did).
+    captured_keys = {p["key"] for p in programs.captured(dev)}
+    staircase_keys = [p["text"] for p in programs.captured(dev)
+                      if p["key"][0] is staircase_torch.staircase_program]
+    print(f"programs after the sharded phase: {len(captured_keys)} graphs, the staircase's "
+          f"{staircase_keys}; the gzip run's {len(gzip_keys & captured_keys)} of "
+          f"{len(gzip_keys)} still captured")
+    case = by_name["gzip"]
+    _, secs, got_counts = timed_run("gzip after the sharded phase", case, data, None,
+                                    lambda: one_shot(case, data, None))
+    if got_counts != first["gzip"][1] or {p["key"] for p in programs.captured(dev)} \
+            != captured_keys or not gzip_keys <= captured_keys:
+        raise SystemExit("programs: the gzip one-shot after the sharded phase did not replay "
+                         "its graphs")
+    print(f"one-shot gzip after the sharded phase: replayed its graphs, captured none, "
+          f"{secs:.3f} s; launches {got_counts}")
+
     # -- the streaming push API: Stream fed in the CLI's 16 KiB chunks ----
     # In turns with the one-shot path: one-shot (above), stream, stream,
     # one-shot, so that a drift of the card or host over the run falls
     # on both sides.
-    by_name = {case["name"]: case for case in golden}
     replayed = {}  # name -> seconds of a one-shot run that replays every program
     for name in ("gzip", "stream"):
         case = by_name[name]

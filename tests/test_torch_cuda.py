@@ -977,3 +977,105 @@ def test_planner_replay_launches_the_fused_kernels(cuda):
     for out in outs:
         for name in want:
             assert torch.equal(out[name].cpu(), want[name]), name
+
+
+# ---------------------------------------------------------------------------
+# The staircase match finder, compress_sharded and the DP's entry points
+# ---------------------------------------------------------------------------
+
+
+def test_staircase_on_the_card_equals_cpu_and_walk(cuda):
+    """Segments of a corpus with a zero run at 64 KiB cores: the staircase
+    on the card (eager, captured, replayed) equals its CPU run, rows and
+    overflow flags; where a segment does not overflow its rows equal the
+    walk kernel's; the overflowing ones are walked on the card."""
+    from zultra_tpu_torch.ops import staircase_torch
+
+    corpus = np.concatenate([_corpus(150_000), np.zeros(70_000, np.uint8)])
+    core = staircase_torch.STAIRCASE_CORE
+    segbufs, _ = build_segments(corpus, [(0, len(corpus))], core)
+    bufs = torch.from_numpy(segbufs)
+    want = staircase_torch.staircase_segments(bufs, 16, HALO, core)
+    assert want[2].any() and not want[2].all()
+    for call in range(3):
+        got = staircase_torch.staircase_segments(bufs.to(cuda), 16, HALO, core)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), call
+    walked = walk_cuda.walk_segments(salcp_batch(bufs.to(cuda)), HALO, core).cpu()
+    ok = ~want[2]
+    assert torch.equal(want[0][ok], walked[ok] >> 16)
+    assert torch.equal(want[1][ok], walked[ok] & 0xFFFF)
+    rows = staircase_torch.sharded_rows(segbufs, [cuda], 16, core)
+    assert torch.equal(rows.cpu(), walked)
+    rows = programs.replay_against_eager(cuda, fn=staircase_torch.staircase_program)
+    assert rows and all(r["max_abs_err"] == 0 and not r["launches"] for r in rows), rows
+
+
+def test_match_tables_for_spans_on_the_card(cuda):
+    """Three windows and a zero run: the walk path on the card, the
+    staircase over ["cuda:0", "cuda:0"] and the staircase on the CPU give
+    the same tables."""
+    from zultra_tpu_torch.ops import staircase_torch
+
+    corpus = np.concatenate([_corpus(100_000), np.zeros(40_000, np.uint8)])
+    spans = [(0, 50_000), (50_000, 100_000), (100_000, len(corpus))]
+    want = staircase_torch.match_tables_for_spans(corpus, spans, 32768, devices=["cpu"])
+    for got in (staircase_torch.match_tables_for_spans(corpus, spans, 32768, device=cuda),
+                staircase_torch.match_tables_for_spans(corpus, spans, 32768,
+                                                       devices=["cuda:0", "cuda:0"])):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_compress_sharded_on_the_card_equals_golden(cuda):
+    """The gzip and dictionary cases through ``compress_sharded`` on
+    ["cuda:0", "cuda:0"]: the golden digest, and zlib decodes them."""
+    from zultra_tpu_torch.parallel import compress_sharded
+
+    for name in ("gzip", "dictionary"):
+        case = _golden_cases()[name]
+        data, dictionary = case_inputs(case)
+        ops.reset_launch_counts()
+        out = compress_sharded(data, ["cuda:0", "cuda:0"], case["flags"], case["block_size"],
+                               dictionary=dictionary)
+        _assert_golden(f"sharded {name}", case, out)
+        counts = ops.launch_counts()
+        assert counts["dp"] and counts["chain"] and counts["mk12"], counts
+    dec = zlib.decompressobj(15, zdict=dictionary)
+    assert dec.decompress(out) + dec.flush() == data
+
+
+def test_optimize_matches_on_the_card_equals_cpu(cuda):
+    """One 64 KiB block past 32 KiB of history and a batch of three blocks
+    (one of them empty): the card's choices equal the CPU run's."""
+    from zultra_tpu import native
+    from zultra_tpu_torch.ops import parse_torch
+
+    window = _corpus(98_304)
+    table = native.build_match_table(window, 32768).astype(np.int32)
+    rng = np.random.default_rng(5)
+    lit, off = rng.integers(4, 14, 288), rng.integers(2, 12, 32)
+    job = (lit, off, window, table, 32768, len(window))
+    ops.reset_launch_counts()
+    got = parse_torch.optimize_matches(*job, device=cuda)
+    assert ops.launch_counts()["dp"] == 1 and ops.launch_counts()["prep_lanes"] == 1
+    np.testing.assert_array_equal(got, parse_torch.optimize_matches(*job, device="cpu"))
+    jobs = [job, (lit, off, window, table, 40000, 50000), (lit, off, window, table, 7, 7)]
+    for g, w in zip(parse_torch.optimize_matches_batch(jobs, device=cuda),
+                    parse_torch.optimize_matches_batch(jobs, device="cpu")):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_optimize_matches_lane_above_seq_limit_on_the_card(cuda):
+    """A block of SEQ_LIMIT + 5000 positions: the kernel runs it as one
+    sequential pass, equal to the CPU run."""
+    from zultra_tpu import native
+    from zultra_tpu_torch.ops import parse_torch
+
+    size = dp_cuda.SEQ_LIMIT + 5000 + 100
+    window = np.frombuffer(mixed_corpus(size, seed=9), np.uint8)
+    table = native.build_match_table(window, 100).astype(np.int32)
+    rng = np.random.default_rng(9)
+    job = (rng.integers(4, 14, 288), rng.integers(2, 12, 32), window, table, 100, size)
+    np.testing.assert_array_equal(parse_torch.optimize_matches(*job, device=cuda),
+                                  parse_torch.optimize_matches(*job, device="cpu"))

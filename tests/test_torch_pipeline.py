@@ -41,16 +41,20 @@ def test_compress_device_equals_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing the port and compressing on the CPU loads no module
-    named jax* and no zultra_tpu or zultra_tpu.* module."""
+    """Importing the port and compressing on the CPU (one shot and
+    sharded) loads no module named jax* and no zultra_tpu or zultra_tpu.*
+    module."""
     code = (
         "import sys, zlib\n"
         "import zultra_tpu_torch as ztt\n"
         "import zultra_tpu_torch.parallel.multihost, zultra_tpu_torch.profiling\n"
         "import zultra_tpu_torch.ops.emit_torch, zultra_tpu_torch.matchfinder\n"
+        "import zultra_tpu_torch.ops.staircase_torch, zultra_tpu_torch.ops.nsv_torch\n"
+        "import zultra_tpu_torch.ops.parse_torch, zultra_tpu_torch.parallel\n"
         "data = bytes(range(256)) * 40\n"
         "out = ztt.compress(data, 1, device='cpu')\n"
         "assert zlib.decompress(out) == data\n"
+        "assert zultra_tpu_torch.parallel.compress_sharded(data, ['cpu'], 1) == out\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "bad += sorted(m for m in sys.modules if m == 'zultra_tpu' or m.startswith('zultra_tpu.'))\n"
         "print('LOADED', bad)\n"
@@ -90,7 +94,8 @@ def test_port_sources_import_no_zultra_tpu():
             "zultra_tpu_torch/parallel/multihost.py", "zultra_tpu_torch/profiling.py",
             "zultra_tpu_torch/ops/checksum.py", "zultra_tpu_torch/ops/emit_torch.py",
             "zultra_tpu_torch/matchfinder.py", "zultra_tpu_torch/suffix.py",
-            "zultra_tpu_torch/ops/plan_cuda.py"} <= names
+            "zultra_tpu_torch/ops/plan_cuda.py", "zultra_tpu_torch/ops/staircase_torch.py",
+            "zultra_tpu_torch/ops/nsv_torch.py", "zultra_tpu_torch/ops/parse_torch.py"} <= names
     assert not bad, bad
 
 

@@ -45,9 +45,11 @@ from zultra_tpu_torch.ops import (
     dp_cuda,
     entropy_torch,
     matchfinder_torch,
+    nsv_torch,
     plan_cuda,
     programs,
     split_torch,
+    staircase_torch,
     suffix_torch,
     symbol_map,
     walk_cuda,
@@ -470,7 +472,7 @@ CAPTURED = {
     matchfinder_torch: ("match_program", "segments_from_corpus", "_gather", "salcp_batch",
                         "assemble_lanes"),
     suffix_torch: ("doubling_rounds_fixed", "stored_rounds", "later_rounds", "_round",
-                   "_sort_rerank", "adjacent_lcp"),
+                   "_sort_rerank", "adjacent_lcp", "pair_lcp"),
     walk_cuda: ("walk_segments",),
     block_torch: ("plan_block_core", "token_starts", "token_hist",
                   "offset_workaround", "_match_bits", "post_optimize", "emit_tokens"),
@@ -485,6 +487,8 @@ CAPTURED = {
     split_torch: ("split_batch", "split_program", "token_structure", "_take", "_put"),
     symbol_map: ("floor_log2", "matchlen_sym_extra_base", "offset_sym_extra_base",
                  "offset_index", "select_by_symbol"),
+    staircase_torch: ("staircase_program", "_staircase_rows", "_shift_in"),
+    nsv_torch: ("build_sparse_min", "find_left", "find_right"),
 }
 HOST_CALLS = {"tensor", "as_tensor", "from_numpy", "nonzero", "pin_memory", "synchronize"}
 HOST_METHODS = {"item", "tolist", "cpu", "numpy"}

@@ -4,10 +4,12 @@ writes the framing, the table bits and the ordered splice of the packed
 token words.
 
 Port of zultra_tpu/device_pipeline.py. The device half
-(``_begin_windows_batched``, ``begin_window_device``, ``compress_device``
-with ``windows_per_batch`` and ``devices``, ``DeviceWindowEngine`` with
-its queued stream batch and the per-window contract) is written in
-PyTorch. The host half
+(``_begin_windows_batched``, here the match stage ``match_stacks`` and
+``plan_windows``, which plans from given match tables, as
+``parallel.compress_sharded`` does from the staircase's;
+``begin_window_device``, ``compress_device`` with ``windows_per_batch``
+and ``devices``, ``DeviceWindowEngine`` with its queued stream batch and
+the per-window contract) is written in PyTorch. The host half
 (``put_packed_bits``, ``_encoder_from_lengths``,
 ``write_block_from_plan``, ``_WindowPlan`` and
 ``emit_window_from_plan``, device_pipeline.py:39-105 and :176-227) is a
@@ -33,7 +35,7 @@ from .constants import (
     NVALIDOFFSETSYMS,
 )
 from .huffman import HuffmanEncoder, write_var_lengths
-from .ops.block_torch import plan_blocks_device_multi, to_device, to_host
+from .ops.block_torch import on_device, plan_blocks_device_multi, to_device, to_host
 from .ops.matchfinder_torch import HALO, match_stacks, match_table
 from .ops.split_torch import input_cap, split_batch, split_bucket, trig_cap_for
 from .stream import StreamError, clamp_block_size, memory_bound
@@ -178,8 +180,19 @@ def begin_windows_batched(corpus: np.ndarray, spans, mbs: int, device) -> list:
     real history bytes (<= 32 KB) just below; the lanes' bytes and match
     tables come from ``match_stacks``. Returns one _WindowPlan per span,
     in order."""
+    return plan_windows(corpus, spans, mbs, *match_stacks(corpus, spans, mbs, device))
+
+
+def plan_windows(corpus: np.ndarray, spans, mbs: int, lens_st: torch.Tensor,
+                 offs_st: torch.Tensor, win_dev: torch.Tensor) -> list:
+    """The planning half of ``begin_windows_batched``, on the device of the
+    given stacks: block split and block plans of a batch of window spans
+    from their match tables ``lens_st``, ``offs_st`` (W, HALO + mbs, 8)
+    int32 and window bytes ``win_dev`` (W, HALO + mbs) uint8 in the lane
+    layout ``match_stacks`` gives. Returns one _WindowPlan per span, in
+    order."""
+    device = win_dev.device
     n_lane = HALO + mbs
-    lens_st, offs_st, win_dev = match_stacks(corpus, spans, mbs, device)
     prevs = [min(HISTORY_SIZE, w_lo) for w_lo, _ in spans]
 
     n_pad = split_bucket(n_lane)
@@ -249,11 +262,8 @@ def begin_window_device(window: np.ndarray, prev: int, in_size: int, n_threads: 
 
 
 def begin_windows_on(device: torch.device, corpus: np.ndarray, spans, mbs: int) -> list:
-    """begin_windows_batched with ``device`` current, so that the kernels
-    launch on that card's stream from whichever thread calls."""
-    if device.type != "cuda":
-        return begin_windows_batched(corpus, spans, mbs, device)
-    with torch.cuda.device(device):
+    """begin_windows_batched with ``device`` current."""
+    with on_device(device):
         return begin_windows_batched(corpus, spans, mbs, device)
 
 

@@ -1,14 +1,15 @@
-"""Device stages of the port: symbol maps, suffix arrays, match tables,
-the Huffman bundle, the splitter, the block planner, token emission,
-checksums, and the wrappers of the walk, DP, chain, MK, Kraft, matchlen,
-byte-histogram, RLE-sweep, RLE-statistics, prefix-table, DP lane
-preparation, token-histogram, token-emission and short-row order
-kernels. No kernel is built at package load (the first CUDA launch
-builds them all).
+"""Device stages of the port: symbol maps, suffix arrays, match tables
+(the walk's, and the staircase match finder's), the NSV queries, the
+Huffman bundle, the splitter, the block planner, the DP's entry points,
+token emission, checksums, and the wrappers of the walk, DP, chain, MK,
+Kraft, matchlen, byte-histogram, RLE-sweep, RLE-statistics,
+prefix-table, DP lane preparation, token-histogram, token-emission and
+short-row order kernels. No kernel is built at package load (the first
+CUDA launch builds them all).
 
-The exports are the counterparts of zultra_tpu/ops/__init__.py:17-30
-(``optimize_matches_jax``, the JAX scan DP kept for cross-checks, has
-none: ROADMAP A8)."""
+The exports are the counterparts of zultra_tpu/ops/__init__.py:17-30;
+``optimize_matches`` is that of ``optimize_matches_jax``, the JAX
+package's scan DP kept for cross-checks."""
 
 import contextlib
 import threading
@@ -70,6 +71,7 @@ def reset_launch_counts() -> None:
 
 from .checksum import adler32, adler32_combine, crc32_combine  # noqa: E402
 from .histogram_cuda import byte_histogram, token_histogram  # noqa: E402
+from .parse_torch import optimize_matches, optimize_matches_batch  # noqa: E402
 from .suffix_torch import plcp, suffix_array  # noqa: E402
 
 __all__ = [
@@ -80,6 +82,8 @@ __all__ = [
     "adler32",
     "adler32_combine",
     "crc32_combine",
+    "optimize_matches",
+    "optimize_matches_batch",
     "launch_counts",
     "reset_launch_counts",
 ]

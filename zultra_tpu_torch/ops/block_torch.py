@@ -17,6 +17,8 @@ shape, as ``jax.jit`` makes ``_plan_block_core`` one program a shape.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -265,6 +267,12 @@ def plan_block_core(window, mlens, moffs, length, greedy_tok=None):
         "words": words,
         "total_bits": total_bits,
     }
+
+
+def on_device(device: torch.device):
+    """A block with ``device`` current if it is a CUDA device, so that the
+    kernels launch on that card's stream from whichever thread calls."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 def to_device(arr: np.ndarray, device) -> torch.Tensor:

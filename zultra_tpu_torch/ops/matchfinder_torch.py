@@ -170,14 +170,14 @@ def salcp_batch(bufs: torch.Tensor) -> torch.Tensor:
 
 
 def assemble_lanes(rows: torch.Tensor, corpus_dev: torch.Tensor, win_meta: torch.Tensor,
-                   W: int, k: int):
-    """(W*k, SEG_CORE, 8) packed rows -> lens, offs (W, HALO + k*SEG_CORE,
-    8) int32 and the window bytes (W, HALO + k*SEG_CORE) uint8, the stacked
+                   W: int, k: int, seg_core: int = SEG_CORE):
+    """(W*k, seg_core, 8) packed rows -> lens, offs (W, HALO + k*seg_core,
+    8) int32 and the window bytes (W, HALO + k*seg_core) uint8, the stacked
     lane layout (zultra_tpu.ops.matchfinder_jax._assemble_stacked and the
     window stack of zultra_tpu.device_pipeline._begin_windows_batched).
     Segment cores tile each window, so a lane's rows are a reshape; rows
     past the window's input and the HALO rows below it are zero."""
-    n_core = k * SEG_CORE
+    n_core = k * seg_core
     win, _ = _gather(corpus_dev, win_meta, HALO + n_core)
     in_sizes = win_meta[:, 2] - (HALO - win_meta[:, 1])  # count - prev
     rows = rows.reshape(W, n_core, NMATCHES_PER_OFFSET)

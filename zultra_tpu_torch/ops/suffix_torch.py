@@ -116,9 +116,15 @@ def doubling_rounds_fixed(data: torch.Tensor, store_levels: int | None = None):
 def adjacent_lcp(sa: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
     """lcp(SA[r-1], SA[r]) for r in 1..n-1 by descending the rank tables
     from the widest stored gram to single bytes. (S, n-1) int32."""
-    n = sa.shape[1]
-    i_pos = sa[:, 1:]
-    j_pos = sa[:, :-1]
+    return pair_lcp(ranks, sa[:, 1:], sa[:, :-1])
+
+
+def pair_lcp(ranks: torch.Tensor, i_pos: torch.Tensor, j_pos: torch.Tensor) -> torch.Tensor:
+    """lcp(suffix i, suffix j) of each segment's (S, q) position pairs, up
+    to the widest stored gram's reach (2^(levels+1) - 1), by descending
+    the rank tables (levels + 1, S, n) from that gram to single bytes.
+    (S, q) int32."""
+    n = ranks.shape[2]
     lcp = torch.zeros_like(i_pos)
     levels = ranks.shape[0] - 1
     for level in range(levels, -1, -1):
