@@ -30,8 +30,10 @@ fused passes (``csrc/plan.cu``) at the shapes the 4 MiB gzip run gives
 them: the DP's lane preparation and the emission on every planner
 bucket, the token histograms on every bucket with the splitter's marks
 (the match tables' first row, a strided view) and with the chain's, and
+on a zero-run lane and a one-byte lane (``plan_cuda.hammer_lanes``), and
 the (key, index) order of every row shape the planner and the splitter
-sort, beside ``torch.sort(stable=True)``. Then
+sort, of rows of one repeated key and of rows of 1024 keys, beside
+``torch.sort(stable=True)``. Then
 compresses every case of zultra_tpu_torch/smoke_golden.json in one
 shot: a seeded 4 MiB mixed corpus in gzip (four 1 MiB windows in one
 device batch), then deflate, zlib at 64 KiB blocks, a preset
@@ -239,6 +241,7 @@ def main() -> int:
         launch_counts,
         matchlen_cuda,
         mk_cuda,
+        plan_cuda,
         prefix_cuda,
         programs,
         reset_launch_counts,
@@ -356,6 +359,10 @@ def main() -> int:
     # (with the marks each call used), the emissions, the short-row sorts.
     real_lex = entropy_torch._lex_order
     fused_args = {"token_hist": {}, "emit_tokens": {}, "lex_order": {}}
+    # And how often the run calls the histograms and the sorts at each
+    # shape (a program's eager first call launches what its replays do):
+    # each shape's bound times its calls, summed, is the bound over the run.
+    fused_calls = {"token_hist": {}, "lex_order": {}}
 
     # The planner and the splitter are programs (ops/programs.py): the
     # first call of each shape runs eagerly, the second is captured into a
@@ -366,6 +373,10 @@ def main() -> int:
     def record(table, key, make):
         if key not in table and not torch.cuda.is_current_stream_capturing():
             table[key] = make()
+
+    def count(table, key):
+        if not torch.cuda.is_current_stream_capturing():
+            table[key] = table.get(key, 0) + 1
 
     def recording_sweep(counts):
         record(scan_args["rle_sweep"], tuple(counts.shape), lambda: (counts.clone(),))
@@ -393,8 +404,9 @@ def main() -> int:
     def recording_token_hist(window, lens, offs, length, is_tok=None):
         record(emitted, "length", length.clone)  # the planner's first call: its lane lengths
         out = real_token_hist(window, lens, offs, length, is_tok)
-        record(fused_args["token_hist"], (tuple(window.shape), is_tok is not None),
-               lambda: (window, lens, offs, out[2]))  # lens, offs: views, kept strided
+        key = (tuple(window.shape), is_tok is not None)
+        record(fused_args["token_hist"], key, lambda: (window, lens, offs, out[2]))  # views
+        count(fused_calls["token_hist"], key)
         return out
 
     def recording_emit(*args):
@@ -406,6 +418,7 @@ def main() -> int:
 
     def recording_lex(key):
         record(fused_args["lex_order"], tuple(key.shape), key.clone)
+        count(fused_calls["lex_order"], tuple(key.shape))
         return real_lex(key)
 
     block_torch.run_dp = recording_run_dp
@@ -711,7 +724,8 @@ def main() -> int:
     # events and the device ms of a call from a trace; the sort also beside
     # torch.sort(stable=True), its library call. The bound counts every
     # input read once and every output written once (of a strided view,
-    # its elements alone).
+    # its elements alone); for the token histograms, of the lengths,
+    # offsets and window bytes only those the marked positions need.
     def largest(rows):  # the row of the most bytes stands for the kernel
         return max(rows, key=lambda r: r["bound_ms"])
 
@@ -719,22 +733,69 @@ def main() -> int:
                           dp_cuda.prep_lanes, dp_cuda.prep_lanes_plain, args, 5)
                  for _, args in sorted(buckets.items())]
     results["prep_lanes"] = dict(largest(prep_rows), plain_device="cuda", rows=prep_rows)
+
+    def hist_kernel(w, ln, of, tok):
+        return block_torch.token_hist(w, ln, of, None, tok)[:2]
+
+    def hist_need(args, outs):  # every mark, a marked length, a match's offset, a literal
+        _, lens, _, is_tok = args
+        match = is_tok & (lens >= 3)
+        return (is_tok.numel() + 4 * int(is_tok.sum()) + 4 * int(match.sum())
+                + int((is_tok & ~match).sum()) + nbytes(*outs))
+
+    def over_run(name, rows, keys):  # rows[i] is the run's shape keys[i]
+        for row, key in zip(rows, keys):
+            row["run_launches"] = fused_calls[name][key]
+        total = sum(r["run_launches"] * r["bound_ms"] for r in rows[:len(keys)])
+        print(f"{name} over the run: {sum(fused_calls[name].values())} calls "
+              f"({eager_counts[name]} launches counted), bound {total:.4g} ms")
+        return total
+
+    hist_keys = sorted(fused_args["token_hist"])
     hist_rows_f = [scan_row(
-        "token_hist", f"{'given marks' if given else 'chain marks'} {shape}",
-        lambda w, ln, of, tok: block_torch.token_hist(w, ln, of, None, tok)[:2],
-        block_torch.token_hist_plain, args, 5)
-        for (shape, given), args in sorted(fused_args["token_hist"].items())]
-    results["token_hist"] = dict(largest(hist_rows_f), plain_device="cuda", rows=hist_rows_f)
+        "token_hist", f"{'given marks' if given else 'chain marks'} {shape}", hist_kernel,
+        block_torch.token_hist_plain, fused_args["token_hist"][shape, given], 5, need=hist_need)
+        for shape, given in hist_keys]
+    hist_run_bound = over_run("token_hist", hist_rows_f, hist_keys)
+    # The lanes that hammer one bin (plan_cuda.hammer_lanes: a zero run of
+    # 258-matches, one literal byte) at the single-lane bucket's width,
+    # the chain's marks, contiguous rows and the stride-8 first slot.
+    h_win, h_lens, h_offs, h_len = plan_cuda.hammer_lanes(131072, dev)
+    h_marks = chain_cuda.chain_marks(torch.where(h_lens[:, :, 0] >= 3, h_lens[:, :, 0], 1),
+                                     torch.zeros_like(h_len), h_len)
+    for lane, what in enumerate(("zero-run lane", "one-byte lane")):
+        sl = slice(lane, lane + 1)
+        for label, ln, of in (("", h_lens[sl, :, 0].contiguous(), h_offs[sl, :, 0].contiguous()),
+                              (", stride 8", h_lens[sl, :, 0], h_offs[sl, :, 0])):
+            hist_rows_f.append(scan_row("token_hist", f"{what} (1, 131072){label}", hist_kernel,
+                                        block_torch.token_hist_plain,
+                                        (h_win[sl], ln, of, h_marks[sl]), 5, need=hist_need))
+    results["token_hist"] = dict(largest(hist_rows_f), plain_device="cuda", rows=hist_rows_f,
+                                 run_bound_ms=hist_run_bound)
     emit_rows = [scan_row("emit_tokens", f"gzip bucket {shape}", block_torch.emit_tokens,
                           block_torch.emit_tokens_plain, args, 5)
                  for shape, args in sorted(fused_args["emit_tokens"].items())]
     results["emit_tokens"] = dict(largest(emit_rows), plain_device="cuda", rows=emit_rows)
-    lex_rows = [scan_row("lex_order", f"{B} rows x {S}", entropy_torch._lex_order,
+    # Beside the run's shapes: rows of one repeated key (the splitter's
+    # 4096 x 288 and one planner row) and rows of 1024 keys (MAX_SORT).
+    lex_keys = sorted(fused_args["lex_order"], reverse=True)
+    lex_calls = [(f"{B} rows x {S}", fused_args["lex_order"][B, S]) for B, S in lex_keys]
+    lex_rng = np.random.default_rng(16)
+    lex_calls += [("all-equal 4096 rows x 288", torch.full((4096, 288), 5, dtype=torch.int32,
+                                                           device=dev)),
+                  ("all-equal 1 rows x 288", torch.full((1, 288), 5, dtype=torch.int32,
+                                                        device=dev))]
+    lex_calls += [(f"1024 keys, {B} rows", torch.from_numpy(
+        lex_rng.integers(-50, 50, (B, 1024)).astype(np.int32)).to(dev)) for B in (128, 1)]
+    lex_rows = [scan_row("lex_order", label, entropy_torch._lex_order,
                          entropy_torch._lex_order_plain, (key,), 20,
                          library=lambda key=key: torch.sort(key, dim=1, stable=True),
                          library_name="torch.sort(stable=True)")
-                for (B, S), key in sorted(fused_args["lex_order"].items(), reverse=True)]
-    results["lex_order"] = dict(largest(lex_rows), plain_device="cuda", rows=lex_rows)
+                for label, key in lex_calls]
+    for row, (_, key) in zip(lex_rows, lex_calls):
+        row["layout"] = plan_cuda.lex_order_layout(*key.shape)
+    results["lex_order"] = dict(largest(lex_rows), plain_device="cuda", rows=lex_rows,
+                                run_bound_ms=over_run("lex_order", lex_rows, lex_keys))
     del fused_args
 
     # matchlen: the pair (i, i - offset) of every position of the 4 MiB

@@ -916,8 +916,10 @@ def _same(got, want, label):
 def test_planner_fused_kernels_equal_plain(cuda, B, n):
     """prep_lanes, token_hist (given marks: the chain's, and the first
     row's strided view as the greedy call passes it) and emit_tokens at a
-    gzip bucket shape: each launch's outputs equal the plain forms' on the
-    same card tensors, max abs err 0; one launch count a call."""
+    gzip bucket shape, and token_hist on a zero-run lane and a one-byte
+    lane of the bucket's width (contiguous rows and the stride-8 first
+    slot): each launch's outputs equal the plain forms' on the same card
+    tensors, max abs err 0; one launch count a call."""
     window, mlens, moffs, length, is_tok, codes = _planner_inputs(B, n, B * 7 + n, cuda)
     ll, ol = codes[1], codes[3]
     ops.reset_launch_counts()
@@ -934,25 +936,94 @@ def test_planner_fused_kernels_equal_plain(cuda, B, n):
                                    torch.zeros_like(length), length)
     args = (window, best_len, best_off, *codes, marks)
     _same(block_torch.emit_tokens(*args), block_torch.emit_tokens_plain(*args), "emit_tokens")
+    h_win, h_lens, h_offs, h_len = plan_cuda.hammer_lanes(n, cuda)
+    h_marks = chain_cuda.chain_marks(torch.where(h_lens[:, :, 0] >= 3, h_lens[:, :, 0], 1),
+                                     torch.zeros_like(h_len), h_len)
+    for label, hl, ho in (("contiguous", h_lens[:, :, 0].contiguous(),
+                           h_offs[:, :, 0].contiguous()),
+                          ("stride 8", h_lens[:, :, 0], h_offs[:, :, 0])):
+        got = block_torch.token_hist(h_win, hl, ho, h_len, h_marks)
+        want = block_torch.token_hist_plain(h_win, hl, ho, h_marks)
+        _same(got[:2], want, f"token_hist, hammer lanes, {label}")
+        assert int(want[0][1, 0x61]) == n and int(want[1][0, 0]) >= n // 258
     counts = ops.launch_counts()
-    assert [counts[k] for k in ("prep_lanes", "token_hist", "emit_tokens")] == [1, 1, 1]
+    assert [counts[k] for k in ("prep_lanes", "token_hist", "emit_tokens")] == [1, 3, 1]
 
 
-@pytest.mark.parametrize("S", [19, 32, 288, 320])
-@pytest.mark.parametrize("B", [1, 84, 4096])
-def test_lex_order_kernel_equals_plain(cuda, S, B):
-    """The order of (key, index) at the planner's and splitter's rows
-    (4096 lanes: the splitter's batch), keys with INF32 for unused symbols
-    and many ties, against torch.sort(stable=True) on the card."""
-    rng = np.random.default_rng(S * 13 + B)
+def test_token_hist_unaligned_rows_equal_plain(cuda):
+    """Rows the wide loads cannot take (n % 8 != 0, a window and marks
+    that start one byte past an 8-byte boundary), with contiguous and
+    strided lengths: max abs err 0, one launch a call."""
+    window, mlens, moffs, length, is_tok, _ = _planner_inputs(4, 65536, 11, cuda)
+    ops.reset_launch_counts()
+    calls = 0
+    n = 4099  # not a multiple of 8: the byte-wise loads
+    for start in (0, 1):  # contiguous rows from an aligned and an unaligned address
+        w = torch.empty(4 * n + 1, dtype=torch.uint8, device=cuda)[start : start + 4 * n]
+        w = w.view(4, n).copy_(window[:, :n])
+        tok = torch.empty(4 * n + 1, dtype=torch.bool, device=cuda)[start : start + 4 * n]
+        tok = tok.view(4, n).copy_(is_tok[:, :n])
+        for ln, of in ((mlens[:, :n, 0], moffs[:, :n, 0]),
+                       (mlens[:, :n, 0].contiguous(), moffs[:, :n, 0].contiguous())):
+            got = block_torch.token_hist(w, ln, of, length, tok)[:2]
+            _same(got, block_torch.token_hist_plain(w, ln, of, tok), f"token_hist n {n}")
+            calls += 1
+    assert ops.launch_counts()["token_hist"] == calls
+
+
+def _lex_keys(rng, B, S):
+    """Histogram keys with INF32 for unused symbols and many ties; row 0
+    all unused; then, where B allows, the packed word's edges: a row of
+    one repeated key, rows of INT32_MIN, of INT32_MAX, of both
+    alternating, of small negative keys, and of any int32."""
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
     h = rng.integers(1, 6, (B, S)) * (2 ** rng.integers(0, 9, (B, S)))
     key = np.where(rng.random((B, S)) < 0.3, entropy_torch.INF32, h)
     key[0] = entropy_torch.INF32  # an all-zero histogram
-    key = torch.from_numpy(key.astype(np.int32)).to(cuda)
+    edges = [np.full(S, 5), np.full(S, lo), np.full(S, hi), np.where(np.arange(S) % 2, lo, hi),
+             rng.integers(-3, 3, S), rng.integers(lo, hi, S, endpoint=True)]
+    for i, row in enumerate(edges[: B - 1], 1):
+        key[i] = row
+    return torch.from_numpy(key.astype(np.int32))
+
+
+@pytest.mark.parametrize("S", [19, 32, 288, 320, 33, 1000, 1024])
+@pytest.mark.parametrize("B", [1, 84, 4096])
+def test_lex_order_kernel_equals_plain(cuda, S, B):
+    """The order of (key, index) at the planner's and splitter's rows
+    (4096 lanes: the splitter's batch, at 288 and 320 keys in the
+    throughput layout; everything else in the latency layout), keys with INF32 for unused symbols and many ties
+    and the packed word's edges, against torch.sort(stable=True) on the
+    card."""
+    key = _lex_keys(np.random.default_rng(S * 13 + B), B, S).to(cuda)
     ops.reset_launch_counts()
     got = entropy_torch._lex_order(key)
     _same([got], [entropy_torch._lex_order_plain(key)], "lex_order")
     assert ops.launch_counts()["lex_order"] == 1
+
+
+def test_lex_order_every_layout_equals_plain(cuda):
+    """Every layout the C entry picks: each width's latency layout (one
+    and 300 rows) and, at P = 512, the throughput layout (from
+    LEX_THROUGHPUT_ROWS rows, and a partial last block), on rows of P and
+    of P / 2 + 1 keys (the most padding): max abs err 0, one launch a
+    call."""
+    rng = np.random.default_rng(7)
+    ops.reset_launch_counts()
+    calls, seen = 0, set()
+    for P in (64, 128, 256, 512, 1024):
+        for S in (P, P // 2 + 1):
+            for B in (1, 300) + ((plan_cuda.LEX_THROUGHPUT_ROWS + 3,) if P == 512 else ()):
+                if S <= 32:
+                    continue
+                key = _lex_keys(rng, B, S).to(cuda)
+                got = plan_cuda.launch_lex_order(key)
+                layout = plan_cuda.lex_order_layout(B, S)
+                _same([got], [entropy_torch._lex_order_plain(key)], f"lex_order {layout}")
+                seen.add(layout)
+                calls += 1
+    assert ops.launch_counts()["lex_order"] == calls
+    assert (512, 16, 8) in seen and len(seen) == 6
 
 
 def test_planner_replay_launches_the_fused_kernels(cuda):

@@ -9,10 +9,13 @@ num_keys=2)``). Each plain form, and each plain model of a kernel's
 schedule in ``ops/plan_cuda.py`` (K11-K14), is held against JAX on
 numpy-seeded lanes with their edges: a lane of length 0, a match that
 crosses the lane's length, offsets 1, 256, 257 and 32768, a length of
-258, all-zero histograms and the INF32 keys of unused symbols. Then the
-whole planner with the four models in place of the plain forms against
-``block_jax._plan_block_core`` plus ``_emit_part``. Every output is
-integer: tolerance is exact equality."""
+258, all-zero histograms and the INF32 keys of unused symbols. The token
+histograms also take a lane of all zeros and a lane of one literal byte
+(one bin hammered), at the kernel's tile and at tiles of the model's
+alone; the order takes rows of 1 to 1024 keys, of one repeated key,
+negative keys and INT32_MIN / INT32_MAX, under both network layouts. Then the whole planner with the four models in place of the
+plain forms against ``block_jax._plan_block_core`` plus ``_emit_part``.
+Every output is integer: tolerance is exact equality."""
 
 import numpy as np
 import pytest
@@ -127,9 +130,24 @@ def _marks(lens, length):
     return chain_marks_plain(torch.where(lens >= 3, lens, 1), torch.zeros_like(length), length)
 
 
-@pytest.mark.parametrize("tile", [pc.TILE, 1000, 64])
-def test_token_hist_plain_and_model_equal_jax(lanes, tile):
+@pytest.fixture(scope="module")
+def hist_lanes(lanes):
+    """The four lanes and two that hammer one bin: a lane of all zeros
+    (every position a literal 0) and a lane of one literal byte."""
     win, mlens, moffs, length = lanes
+    zeros = np.zeros((2, N, 8), np.int32)
+    return (np.concatenate([win, np.zeros((1, N), np.uint8), np.full((1, N), 0x61, np.uint8)]),
+            np.concatenate([mlens, zeros]), np.concatenate([moffs, zeros]),
+            np.concatenate([length, [N, N]]).astype(np.int32))
+
+
+@pytest.mark.parametrize("tile", [pc.TILE, 1000, 64, 2048, 1024, 512, 256, 128])
+def test_token_hist_plain_and_model_equal_jax(hist_lanes, tile):
+    """The kernel's tile (HIST_TILE, 1024, at every bucket) and tiles of
+    the model's alone: the sums stay exact under any split of the lane
+    (1000, 128, 64: partial warps, many blocks a lane)."""
+    win, mlens, moffs, length = hist_lanes
+    B = win.shape[0]
     lens, offs = torch.from_numpy(mlens[:, :, 0]), torch.from_numpy(moffs[:, :, 0])
     is_tok = _marks(lens, torch.from_numpy(length))
     want_lit, want_off, _ = jax.jit(block_jax._token_hist, static_argnums=4)(
@@ -145,17 +163,24 @@ def test_token_hist_plain_and_model_equal_jax(lanes, tile):
                                                   tile=tile, order_seed=seed)
         _eq(want_lit, m_lit, "model lit")
         _eq(want_off, m_off, "model off")
-        assert stats["blocks"] == 4 * -(-N // tile)
-    # Lane 0 (length 0) holds the EOD alone; lane 1's crossing match counts.
+        assert stats["blocks"] == B * -(-N // tile) and stats["runs"] == B * N // pc.RUN
+    # Lane 0 (length 0) holds the EOD alone, every run of it skipped; lane
+    # 1's crossing match counts; the zero run's matches hammer symbols 285
+    # and 0, the last two lanes one literal bin; one shared add a token and
+    # one a match's offset.
     assert int(lit[0].sum()) == 1 and int(lit[0, 256]) == 1 and int(off[0].sum()) == 0
+    assert stats["runs_skipped"] >= N // pc.RUN
     assert bool(is_tok[1, N - 120]) and int(lit[1, 285]) >= 1
+    assert int(lit[2, 285]) >= N // 258 - 1 and int(off[2, 0]) == int(lit[2, 257:].sum())
+    assert int(lit[4, 0]) == N and int(lit[5, 0x61]) == N
+    assert stats["shared_adds"] == int(is_tok.sum()) + int(np.asarray(want_off).sum())
 
 
-def test_token_hist_strided_and_greedy_marks_equal_jax(lanes):
+def test_token_hist_strided_and_greedy_marks_equal_jax(hist_lanes):
     """The planner's greedy call: the match tables' first slot (a view of
     stride 8) and greedy marks cut at each lane's length; also the
     chain's own marks (is_tok None)."""
-    win, mlens, moffs, length = lanes
+    win, mlens, moffs, length = hist_lanes
     ml, mo = torch.from_numpy(mlens), torch.from_numpy(moffs)
     ln = torch.from_numpy(length)
     greedy = chain_marks_plain(torch.where(ml[:, :, 0] >= 3, ml[:, :, 0], 1),
@@ -171,6 +196,7 @@ def test_token_hist_strided_and_greedy_marks_equal_jax(lanes):
         model = pc.token_hist_model(torch.from_numpy(win), ml[:, :, 0], mo[:, :, 0], got[2])
         _eq(want[0], model[0])
         _eq(want[1], model[1])
+        assert model[2]["tile"] == pc.HIST_TILE
 
 
 # ---------------------------------------------------------------------------
@@ -246,19 +272,28 @@ def _keys(S, seed):
     """Rows as the planner sorts them: histograms with INF32 for unused
     symbols (mk_inputs), length * S + symbol keys (kraft_inputs,
     canonical_codewords); an all-unused row, a one-symbol row, a row of
-    equal weights, and seeded rows with many ties."""
+    equal weights, and seeded rows with many ties; then the edges of the
+    packed word: rows of INT32_MIN, of INT32_MAX, of both alternating, and
+    of small negative keys with ties."""
     rng = np.random.default_rng(seed)
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
     rows = [np.full(S, INF32), np.where(np.arange(S) == S // 2, 7, INF32), np.full(S, 5)]
     for _ in range(40):
         h = rng.integers(1, 6, S) * (rng.integers(1, 4) ** rng.integers(0, 9, S))
         rows.append(np.where(rng.random(S) < 0.3, INF32, h))
     lens = rng.integers(0, 16, (20, S))
     rows += list(np.where(lens > 0, lens * S + np.arange(S), INF32))
+    rows += [np.full(S, lo), np.full(S, hi), np.where(np.arange(S) % 2, lo, hi),
+             rng.choice([lo, hi, -1, 0, 1], S), rng.integers(-3, 3, S),
+             rng.integers(lo, hi, S, endpoint=True)]
     return torch.from_numpy(np.stack(rows).astype(np.int32))
 
 
-@pytest.mark.parametrize("S", [19, 32, 288, 320])
+@pytest.mark.parametrize("S", [19, 32, 288, 320, 1, 2, 33, 1000, 1024])
 def test_lex_order_plain_and_model_equal_jax(S):
+    """The warp kernel's rank count up to 32 keys, the network above in
+    the latency layout; at P = 512 also a batch of LEX_THROUGHPUT_ROWS
+    rows, the first the C entry sorts in the throughput layout."""
     key = _keys(S, S)
     iota = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), key.shape)
     _, want = jax.jit(lambda k: lax.sort((k, iota), dimension=1, num_keys=2))(
@@ -266,7 +301,28 @@ def test_lex_order_plain_and_model_equal_jax(S):
     _eq(want, entropy_torch._lex_order(key), "plain")
     got, stats = pc.lex_order_model(key)
     _eq(want, got, "model")
-    assert got.dtype == torch.int64 and stats["rows"] == key.shape[0] and stats["ties"] > 0
+    assert got.dtype == torch.int64 and stats["rows"] == key.shape[0]
+    assert stats["ties"] > 0 or S == 1
+    layout = pc.lex_order_layout(key.shape[0], S)
+    if S <= 32:
+        assert layout is None and stats["stages"] == 0
+        return
+    P, E, rows = layout
+    log_p = P.bit_length() - 1
+    assert (P, rows) == (max(64, 1 << (S - 1).bit_length()), 1) and E == max(2, P // 256)
+    assert stats["stages"] == log_p * (log_p + 1) // 2 and stats["padded"] == key.shape[0] * (P - S)
+    if P != 512:
+        return
+    B = pc.LEX_THROUGHPUT_ROWS
+    big = torch.cat([_keys(S, S + i) for i in range(-(-B // key.shape[0]))])[:B]
+    iota = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), big.shape)
+    _, want = jax.jit(lambda k: lax.sort((k, iota), dimension=1, num_keys=2))(
+        jnp.asarray(big.numpy()))
+    got, st = pc.lex_order_model(big)
+    _eq(want, got, "model, throughput layout")
+    assert pc.lex_order_layout(B, S) == (512, 16, 8) and pc.lex_order_layout(B - 1, S) == layout
+    assert st["blocks"] == B // 8 and st["stages"] == stats["stages"]
+    assert st["shuffle_stages"] + st["shared_stages"] < stats["shuffle_stages"] + stats["shared_stages"]
 
 
 def test_launches_refuse_cpu_tensors(lanes):

@@ -24,11 +24,15 @@
 //
 // What bounds them on the card: the bytes. prep_lanes reads 65 B a
 // position (window byte, 8 match lengths and offsets) and writes 68 (lit,
-// p1, p2); token_hist reads 10 B a position; emit_tokens reads 10 and
-// writes half an 8-byte word; lex_order reads 4 B and writes 8 a key.
-// lex_order's rank count makes S compares a key, more than a sort needs
-// (S log2 S): on the splitter's 4096 rows of 288 keys it runs at about
-// 19x the byte time on an H100 (PERF.md, K14).
+// p1, p2); token_hist reads 10 B a position (of a strided view, a 32-byte
+// sector for each marked position's length and each match's offset);
+// emit_tokens reads 10 and writes half an 8-byte word; lex_order reads 4 B
+// and writes 8 a key. At the planner's small shapes the chain of
+// dependent steps bounds them instead: a launch of token_hist on 1 x
+// 131072 positions or of lex_order on one row of 288 keys has well under a
+// microsecond of bytes. On the splitter's 4096 rows of 288 keys lex_order
+// is bound by its integer work: 45 stages of 256 64-bit compare-exchanges
+// a row, some 3000 instructions a warp.
 //
 // What the design does about it:
 // - prep_lanes: a block per (lane, tile of TILE positions); the lane's
@@ -36,10 +40,19 @@
 //   slot) element, so each warp reads and writes 128 contiguous bytes of
 //   the (B, n, 8) arrays. The symbol maps are closed forms of
 //   floor(log2(x)) = 31 - clz(x).
-// - token_hist: a block per (lane, TILE positions) counts into 288 + 32
-//   bins in shared memory and adds the nonzero bins into the lane's rows
-//   with integer atomics (exact in any order); block 0 of a lane adds the
-//   EOD. The rows are made zero by the wrapper.
+// - token_hist: a block per (lane, tile of 1024 positions: 4 warps). A
+//   warp takes
+//   256 positions: each lane loads the marks and window bytes of its run
+//   of RUN = 8 positions with one 8-byte load each, then the warp walks
+//   the 256 positions 32 at a time (lane l at step e takes position 32 e
+//   + l, its mark and byte shuffled from the run's lane), so each length
+//   or offset load reads 32 neighbouring positions. All of a lane's length
+//   loads (and, for contiguous rows, its offset loads) are issued before
+//   any of them is used; a warp whose 32 runs are unmarked loads nothing
+//   more. Each token adds one to the block's shared bins, and the block
+//   adds its nonzero bins into the lane's rows with integer atomics
+//   (exact in any order); block 0 of a lane adds the EOD. The rows are
+//   made zero by the wrapper.
 // - emit_tokens: three launches. count: a block per (lane, chunk of TILE
 //   positions) sums its fields' bit widths; scan: a block per lane scans
 //   the chunk sums into each chunk's first bit and writes the total and
@@ -48,11 +61,26 @@
 //   two 32-bit pieces into the zeroed words with 64-bit atomics. Fields
 //   never overlap, so the adds are ORs; where they would, the words sum
 //   as the plain form's scatter_add sums.
-// - lex_order: rank by count, exact and order-free: key i goes to
-//   position #{j: k_j < k_i} + #{j < i: k_j == k_i}. A warp a row for S
-//   <= 32 (the keys in registers, read back by shuffles), else a block a
-//   row with the keys in shared memory (every thread reads the same key:
-//   a broadcast).
+// - lex_order: for S <= 32 a warp a row ranks by count (the keys in
+//   registers, read back by shuffles): key i goes to #{j: k_j < k_i} +
+//   #{j < i: k_j == k_i}. Above 32, a bitonic sorting network on unique
+//   64-bit words, (key ^ 2^31) << 32 | index, which sort in (key, index)
+//   order, so any correct sort of them is the stable order; a row is
+//   padded to P = 2^ceil(log2 S) words with ~0, which sort after every
+//   key. Every comparator is ascending (each merge starts against the
+//   mirror position), so no stage selects a direction. T = P / E threads
+//   take a row, E words each, position i = t E + e (word e of thread t;
+//   the keys are loaded as index e T + t, coalesced, since any start
+//   order sorts). A stage runs in registers when the partner is in the
+//   thread, by shuffles when it is in the warp, and through shared memory
+//   with a barrier above that. Two layouts: at every width the latency
+//   one, E = 2 (4 at P = 1024) and a row a block (the shortest chain, the
+//   most threads a row), for the planner's few rows; at P = 512, the
+//   width of the 288 keys that the planner and the splitter sort, the
+//   throughput one from LEX_THROUGHPUT_ROWS rows, E = 16 and 8 rows a
+//   block (the fewest shuffles, the grid over every SM), for the
+//   splitter's thousands. The sorted indices pass through shared memory so
+//   that each store writes contiguous indices.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,7 +88,7 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int TILE = 4096;  // positions a block of every per-position kernel
+constexpr int TILE = 4096;  // positions a block of prep_lanes and emit_tokens
 constexpr int SLOTS = 8;    // match slots a position
 constexpr int NLIT = 288;   // literal/length symbols
 constexpr int NOFF = 32;    // offset symbols
@@ -174,7 +202,24 @@ __global__ void __launch_bounds__(THREADS)
 // K12: token histograms
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
+constexpr int RUN = 8;                       // positions of a lane's wide loads
+constexpr int WARP_SPAN = 32 * RUN;          // positions a warp takes
+constexpr int HIST_TILE = 1024;              // positions a block
+constexpr int HIST_THREADS = HIST_TILE / RUN;  // 4 warps
+
+// The nonzero bytes of a word of four marks, as 4 bits.
+__device__ __forceinline__ unsigned byte_marks(unsigned x) {
+  const unsigned ne = __vcmpne4(x, 0u);  // 0xFF where a byte is nonzero
+  return (ne & 1u) | ((ne >> 7) & 2u) | ((ne >> 14) & 4u) | ((ne >> 21) & 8u);
+}
+
+// WIDE: n % RUN == 0 and the marks and window rows 8-byte aligned, so a
+// lane's run is one 8-byte load of each. EAGER: the offsets are
+// contiguous along the positions, so every marked position's offset is
+// loaded beside its length (its sector is read anyway); else only a
+// match's offset is loaded, after its length.
+template <bool WIDE, bool EAGER>
+__global__ void __launch_bounds__(HIST_THREADS)
     token_hist_kernel(const uint8_t* __restrict__ window, const int32_t* __restrict__ lens,
                       const int32_t* __restrict__ offs, const uint8_t* __restrict__ is_tok,
                       int32_t* __restrict__ lit_hist, int32_t* __restrict__ off_hist, int n,
@@ -182,28 +227,73 @@ __global__ void __launch_bounds__(THREADS)
                       long long offs_pos) {
   __shared__ int h_lit[NLIT];
   __shared__ int h_off[NOFF];
-  const int b = blockIdx.y, tid = threadIdx.x;
-  for (int i = tid; i < NLIT; i += THREADS) h_lit[i] = 0;
+  const int b = blockIdx.y, tid = threadIdx.x, lane = tid & 31;
+  for (int i = tid; i < NLIT; i += HIST_THREADS) h_lit[i] = 0;
   if (tid < NOFF) h_off[tid] = 0;
   __syncthreads();
   if (blockIdx.x == 0 && tid == 0) h_lit[EOD] = 1;
-  const int p0 = blockIdx.x * TILE;
-  const int p_end = min(p0 + TILE, n);
-  for (int p = p0 + tid; p < p_end; p += THREADS) {
-    if (!is_tok[(size_t)b * n + p]) continue;
-    const int ml = lens[b * lens_lane + p * lens_pos];
-    if (ml >= MIN_MATCH) {
-      int sym, extra, base;
-      len_symbol(min(ml - MIN_MATCH, 255), sym, extra, base);
-      atomicAdd(&h_lit[sym], 1);
-      off_symbol(offset_index(offs[b * offs_lane + p * offs_pos]), sym, extra, base);
-      atomicAdd(&h_off[sym], 1);
-    } else {
-      atomicAdd(&h_lit[window[(size_t)b * n + p]], 1);
+  const size_t row = (size_t)b * n;
+  const int w0 = blockIdx.x * HIST_TILE + (tid >> 5) * WARP_SPAN;  // the warp's first
+  const int p_run = w0 + lane * RUN;                                      // this lane's run
+  unsigned marks = 0, w_lo = 0, w_hi = 0;  // bit i: position p_run + i is a token
+  if (WIDE) {
+    if (p_run < n) {
+      const uint2 m = *reinterpret_cast<const uint2*>(is_tok + row + p_run);
+      const uint2 w = *reinterpret_cast<const uint2*>(window + row + p_run);
+      marks = byte_marks(m.x) | (byte_marks(m.y) << 4);
+      w_lo = w.x, w_hi = w.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < RUN; ++i) {
+      const int p = p_run + i;
+      if (p < n && is_tok[row + p]) {
+        marks |= 1u << i;
+        const unsigned byte = window[row + p];
+        if (i < 4) w_lo |= byte << (8 * i); else w_hi |= byte << (8 * (i - 4));
+      }
+    }
+  }
+  if (__any_sync(FULL, marks != 0)) {
+    // Step e: lane l takes position w0 + 32 e + l, bit l % RUN of the run
+    // of lane 4 e + l / RUN.
+    int ml[RUN], of[RUN], byte[RUN];
+    unsigned tok = 0;
+#pragma unroll
+    for (int e = 0; e < RUN; ++e) {
+      const int src = e * (32 / RUN) + lane / RUN, bit = lane % RUN;
+      const unsigned m = __shfl_sync(FULL, marks, src);
+      const unsigned lo = __shfl_sync(FULL, w_lo, src), hi = __shfl_sync(FULL, w_hi, src);
+      const bool t = (m >> bit) & 1u;
+      tok |= (unsigned)t << e;
+      byte[e] = ((bit < 4 ? lo : hi) >> (8 * (bit & 3))) & 0xFF;
+      const long long p = w0 + 32 * e + lane;
+      ml[e] = t ? lens[b * lens_lane + p * lens_pos] : 0;
+      of[e] = (EAGER && t) ? offs[b * offs_lane + p * offs_pos] : 0;
+    }
+    if (!EAGER) {
+#pragma unroll
+      for (int e = 0; e < RUN; ++e) {
+        const long long p = w0 + 32 * e + lane;
+        if (((tok >> e) & 1u) && ml[e] >= MIN_MATCH) of[e] = offs[b * offs_lane + p * offs_pos];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < RUN; ++e) {
+      if (!((tok >> e) & 1u)) continue;
+      if (ml[e] >= MIN_MATCH) {
+        int sym, extra, base;
+        len_symbol(min(ml[e] - MIN_MATCH, 255), sym, extra, base);
+        atomicAdd(&h_lit[sym], 1);
+        off_symbol(offset_index(of[e]), sym, extra, base);
+        atomicAdd(&h_off[sym], 1);
+      } else {
+        atomicAdd(&h_lit[byte[e]], 1);
+      }
     }
   }
   __syncthreads();
-  for (int i = tid; i < NLIT; i += THREADS) {
+  for (int i = tid; i < NLIT; i += HIST_THREADS) {
     if (h_lit[i]) atomicAdd(&lit_hist[(size_t)b * NLIT + i], h_lit[i]);
   }
   if (tid < NOFF && h_off[tid]) atomicAdd(&off_hist[(size_t)b * NOFF + tid], h_off[tid]);
@@ -427,23 +517,118 @@ __global__ void __launch_bounds__(THREADS)
   if (i < S) out[(size_t)row * S + rank] = i;
 }
 
-// S > 32: a block a row, a thread a key.
-__global__ void __launch_bounds__(MAX_SORT)
-    lex_order_block_kernel(const int32_t* __restrict__ key, long long* __restrict__ out,
-                           int S) {
-  __shared__ int k_s[MAX_SORT];
-  const int row = blockIdx.x;
-  for (int j = threadIdx.x; j < S; j += blockDim.x) k_s[j] = key[(size_t)row * S + j];
-  __syncthreads();
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    const int k = k_s[i];
-    int rank = 0;
-    for (int j = 0; j < S; ++j) {
-      const int kj = k_s[j];
-      rank += (kj < k) || (kj == k && j < i);
-    }
-    out[(size_t)row * S + rank] = i;
+// S > 32: a bitonic network on packed words, T = P / E threads a row
+// (whole warps), blockDim.x / T rows a block, P * 8 bytes of dynamic
+// shared memory a row.
+__device__ __forceinline__ unsigned long long pack_key(int32_t key, int index) {
+  return ((unsigned long long)((uint32_t)key ^ 0x80000000u) << 32) | (uint32_t)index;
+}
+
+constexpr int MAX_SORT_THREADS = 256;  // threads a block of the network
+
+// Compare-exchange words e and e ^ m of this thread, the smaller to the
+// lower position (m is a constant once the callers' loops unroll).
+template <int E>
+__device__ __forceinline__ void in_thread(unsigned long long (&v)[E], int m) {
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int f = e ^ m;
+    if (f < e) continue;
+    const bool lt = v[e] < v[f];
+    const unsigned long long lo = lt ? v[e] : v[f], hi = lt ? v[f] : v[e];
+    v[e] = lo;
+    v[f] = hi;
   }
+}
+
+// A stage whose partner is word e (MIRROR: word E - 1 - e) of thread t ^ d:
+// by shuffles when d < 32, else through shared memory. The thread holds
+// the lower position of each pair where (t E) & j == 0 and keeps the
+// smaller word there, the larger one elsewhere.
+template <int E, bool MIRROR>
+__device__ __forceinline__ void across(unsigned long long (&v)[E], unsigned long long* buf,
+                                       int t, int T, int d, int j) {
+  const bool lower = ((t * E) & j) == 0;
+  unsigned long long p[E];
+  if (d < 32) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) p[e] = __shfl_xor_sync(FULL, v[MIRROR ? E - 1 - e : e], d);
+  } else {
+    __syncthreads();  // the last shared stage's reads are done
+#pragma unroll
+    for (int e = 0; e < E; ++e) buf[e * T + t] = v[e];
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < E; ++e) p[e] = buf[(MIRROR ? E - 1 - e : e) * T + (t ^ d)];
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) v[e] = (v[e] < p[e]) == lower ? v[e] : p[e];
+}
+
+// Every comparator puts the smaller word at the lower position: merge
+// width k starts with position i against its mirror i ^ (k - 1) in the
+// same k-block, then i against i ^ j for j = k / 4 .. 1. Merges up to
+// width E run inside the thread, unrolled; each wider merge is one pass of
+// a loop (kept rolled: the code of an unrolled network outgrows the
+// instruction cache), its stages of stride j >= E across threads and its
+// last log2(E) stages inside the thread.
+template <int P, int E>
+__global__ void __launch_bounds__(MAX_SORT_THREADS)
+    lex_order_block_kernel(const int32_t* __restrict__ key, long long* __restrict__ out, int B,
+                           int S) {
+  constexpr int T = P / E;
+  static_assert(T % 32 == 0 && T <= MAX_SORT_THREADS, "a row takes whole warps");
+  extern __shared__ unsigned long long lex_smem[];
+  const int r = threadIdx.x / T, t = threadIdx.x % T;
+  const int row = blockIdx.x * (blockDim.x / T) + r;
+  const bool live = row < B;  // a padded row still meets every barrier
+  unsigned long long* buf = lex_smem + (size_t)r * P;
+  unsigned long long v[E];  // v[e]: position t * E + e
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = e * T + t;  // any start order sorts: load coalesced
+    v[e] = live && i < S ? pack_key(key[(size_t)row * S + i], i) : ~0ull;
+  }
+#pragma unroll
+  for (int k = 2; k <= E; k *= 2) {
+    in_thread(v, k - 1);
+#pragma unroll
+    for (int j = k / 4; j >= 1; j /= 2) in_thread(v, j);
+  }
+#pragma unroll 1
+  for (int k = 2 * E; k <= P; k *= 2) {
+    across<E, true>(v, buf, t, T, k / E - 1, k / 2);
+#pragma unroll 1
+    for (int j = k / 4; j >= E; j /= 2) across<E, false>(v, buf, t, T, j / E, j);
+#pragma unroll
+    for (int j = E / 2; j >= 1; j /= 2) in_thread(v, j);
+  }
+  // Out through shared memory (index i at i + i / 32: no bank conflicts),
+  // so that each store instruction writes contiguous indices.
+  int* idx = reinterpret_cast<int*>(buf);
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = t * E + e;
+    idx[i + (i >> 5)] = (int)(uint32_t)v[e];
+  }
+  __syncthreads();
+  if (live) {
+    for (int i = t; i < S; i += T) out[(size_t)row * S + i] = idx[i + (i >> 5)];
+  }
+}
+
+// Rows at which the P = 512 network takes its throughput layout: on an
+// H100 the crossover at 288 keys lies between 512 and 1024 rows (PERF.md).
+constexpr int LEX_THROUGHPUT_ROWS = 1024;
+
+template <int P, int E, int ROWS = 1>
+int launch_lex_order(const void* key, void* out, int B, int S, cudaStream_t st) {
+  static_assert(ROWS * (P / E) <= MAX_SORT_THREADS, "a block's threads");
+  const size_t smem = (size_t)ROWS * P * sizeof(unsigned long long);
+  lex_order_block_kernel<P, E><<<(B + ROWS - 1) / ROWS, ROWS * (P / E), smem, st>>>(
+      (const int32_t*)key, (long long*)out, B, S);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -468,8 +653,12 @@ extern "C" int zt_token_hist(const void* window, const void* lens, const void* o
                              long long offs_pos, void* stream) {
   if (B < 0 || n < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   if (B > 0) {
-    const dim3 grid((n + TILE - 1) / TILE, B);
-    token_hist_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    const dim3 grid((n + HIST_TILE - 1) / HIST_TILE, B);
+    const bool wide = n % RUN == 0 && (uintptr_t)window % 8 == 0 && (uintptr_t)is_tok % 8 == 0;
+    const bool eager = offs_pos == 1;
+    auto kernel = wide ? (eager ? token_hist_kernel<true, true> : token_hist_kernel<true, false>)
+                       : (eager ? token_hist_kernel<false, true> : token_hist_kernel<false, false>);
+    kernel<<<grid, HIST_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)window, (const int32_t*)lens, (const int32_t*)offs,
         (const uint8_t*)is_tok, (int32_t*)lit_hist, (int32_t*)off_hist, n, lens_lane, lens_pos,
         offs_lane, offs_pos);
@@ -508,18 +697,24 @@ extern "C" int zt_emit_tokens(const void* window, const void* best_len, const vo
   return (int)cudaGetLastError();
 }
 
+// S <= 32: the warp kernel. Else the network on rows padded to P =
+// 2^ceil(log2 S) >= 64, in the layout the width and B pick (above).
 extern "C" int zt_lex_order(const void* key, void* out, int B, int S, void* stream) {
   if (B < 0 || S < 1 || S > MAX_SORT) return (int)cudaErrorInvalidValue;
-  if (B > 0) {
-    const cudaStream_t st = (cudaStream_t)stream;
-    if (S <= 32) {
-      const int rows = THREADS / 32;
-      lex_order_warp_kernel<<<(B + rows - 1) / rows, THREADS, 0, st>>>(
-          (const int32_t*)key, (long long*)out, B, S);
-    } else {
-      const int threads = ((S + 31) / 32) * 32;
-      lex_order_block_kernel<<<B, threads, 0, st>>>((const int32_t*)key, (long long*)out, S);
-    }
+  if (B == 0) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (S <= 32) {
+    const int per_block = THREADS / 32;
+    lex_order_warp_kernel<<<(B + per_block - 1) / per_block, THREADS, 0, st>>>(
+        (const int32_t*)key, (long long*)out, B, S);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (S <= 64) return launch_lex_order<64, 2>(key, out, B, S, st);
+  if (S <= 128) return launch_lex_order<128, 2>(key, out, B, S, st);
+  if (S <= 256) return launch_lex_order<256, 2>(key, out, B, S, st);
+  if (S <= 512) {
+    return B >= LEX_THROUGHPUT_ROWS ? launch_lex_order<512, 16, 8>(key, out, B, S, st)
+                                    : launch_lex_order<512, 2>(key, out, B, S, st);
+  }
+  return launch_lex_order<1024, 4>(key, out, B, S, st);
 }

@@ -12,8 +12,10 @@ tensor reaches the launches here or raises):
 - K12 ``token_hist`` (``block_torch.token_hist`` given the token marks;
   JAX ``block_jax._token_hist``): the literal/length and offset symbol
   histograms of a lane's tokens, EOD += 1. One launch: a block per (lane,
-  TILE positions) counts in shared memory and adds its nonzero bins into
-  the lane's rows with integer atomics.
+  HIST_TILE positions); a lane loads the marks and bytes of a run of RUN
+  positions in one wide load each, a warp walks its 32 runs' positions 32
+  neighbours at a time, each token adds one to shared bins, and the block
+  adds its nonzero bins into the lane's rows with integer atomics.
 - K13 ``emit_tokens`` (``block_torch.emit_tokens``; JAX
   ``block_jax._emit_tokens``): every token's codeword and extra bits
   packed LSB-first into words, EOD last. Three launches: count (each
@@ -23,8 +25,12 @@ tensor reaches the launches here or raises):
   one or two 32-bit pieces into the zeroed words with atomics).
 - K14 ``lex_order`` (``entropy_torch._lex_order``; the ``lax.sort((key,
   iota), num_keys=2)`` of ``entropy_jax``): the indices that sort each
-  row by (key, index), by rank counting: key i goes to #{j: k_j < k_i} +
-  #{j < i: k_j == k_i}. A warp a row for S <= 32, else a block a row.
+  row by (key, index). S <= 32: a warp a row ranks by count (key i goes
+  to #{j: k_j < k_i} + #{j < i: k_j == k_i}). Above: a bitonic network on
+  the unique words (key ^ 2^31) << 32 | index, padded with ~0 to a power
+  of two P, every comparator ascending, in the layout that the C entry
+  picks by P and B (``lex_order_layout``: E words a thread, rows a
+  block).
 
 Every launch runs on the current stream, allocates nothing and waits on
 nothing, so the planner's CUDA graph (``ops/programs.py``) records it;
@@ -56,6 +62,12 @@ N_SHORT = LEAVE_ALONE - MIN_MATCH
 INF16 = 0x7FFF
 BIG = 1 << 30
 MAX_SORT = 1024  # keys a lex_order row
+# Rows at which lex_order's network at P = 512 (rows of 288 keys) takes
+# its throughput layout (csrc/plan.cu's LEX_THROUGHPUT_ROWS).
+LEX_THROUGHPUT_ROWS = 1024
+RUN = 8  # positions of a token_hist lane's wide loads
+WARP_SPAN = 32 * RUN  # positions a token_hist warp takes
+HIST_TILE = 1024  # positions a token_hist block: 4 warps (csrc/plan.cu)
 MAX_LANES = 65535  # lanes a launch of the per-position kernels (the grid's y)
 I32 = torch.int32
 I64 = torch.int64
@@ -161,6 +173,21 @@ def launch_emit_tokens(window, best_len, best_off, lit_cw, lit_len, off_cw, off_
     return words, total_bits
 
 
+def lex_order_layout(B: int, S: int):
+    """K14's network layout for B rows of S keys, as ``zt_lex_order``
+    picks it: (P, E, rows), the row padded to P words, E words a thread
+    (P / E threads a row), rows a block; None for S <= 32 (the warp
+    kernel). The latency layout (E = 2, or 4 at P = 1024; a row a block)
+    at every width; at P = 512 from ``LEX_THROUGHPUT_ROWS`` rows the
+    throughput layout (E = 16, 8 rows a block)."""
+    if S <= 32:
+        return None
+    P = max(64, 1 << (S - 1).bit_length())
+    if P == 512 and B >= LEX_THROUGHPUT_ROWS:
+        return P, 16, 8
+    return P, max(2, P // 256), 1
+
+
 def launch_lex_order(key):
     """K14 on a CUDA tensor: key (B, S) int32, 1 <= S <= 1024 -> (B, S)
     int64, the indices sorting each row by (key, index)."""
@@ -172,6 +199,21 @@ def launch_lex_order(key):
     _build.launch("zt_lex_order", key.data_ptr(), out.data_ptr(), B, S)
     count_launch("lex_order")
     return out
+
+
+def hammer_lanes(n: int, dev):
+    """Two lanes of n positions that hammer one bin of the token
+    histograms (the card tests' and ``chip_smoke.py``'s): a zero run
+    (matches of 258 at offset 1 to the end: length symbol 285, offset
+    symbol 0) and one literal byte (no match). Window (2, n) uint8, match
+    tables (2, n, 8) int32, lengths (2,) int32."""
+    window = torch.zeros((2, n), dtype=U8, device=dev)
+    window[1] = 0x61
+    mlens = torch.zeros((2, n, SLOTS), dtype=I32, device=dev)
+    left = n - torch.arange(n, device=dev, dtype=I32)
+    mlens[0, :, 0] = torch.where(left >= MIN_MATCH, torch.clamp(left, max=258), 0)
+    moffs = torch.where(mlens >= MIN_MATCH, 1, 0).to(I32)
+    return window, mlens, moffs, torch.full((2,), n, dtype=I32, device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -284,29 +326,52 @@ def _token_symbols(window, lens, offs):
     return (np.where(is_match, lsym, window.astype(np.int64)), np.where(is_match, osym, -1))
 
 
-def token_hist_model(window, lens, offs, is_tok, tile=TILE, order_seed=0):
-    """K12's schedule: each (lane, tile) block's partial histograms,
-    added into the lane's rows in a seeded random block order (the
-    atomics' order is the card's to choose), EOD from each lane's first
-    block -> (lit_hist, off_hist, {"blocks": blocks run})."""
+def token_hist_model(window, lens, offs, is_tok, tile=HIST_TILE, order_seed=0):
+    """K12's schedule: a block per (lane, ``tile`` positions), warps of
+    WARP_SPAN positions in runs of RUN a lane, step e of a warp taking
+    positions 32 e + lane into the block's bins; the blocks' bins added
+    into the lane's rows in a seeded random order (the atomics' order is
+    the card's to choose), EOD from each lane's first block -> (lit_hist,
+    off_hist, counters: tile, blocks, runs (of RUN positions inside the
+    lane), runs_skipped (no mark), warps_skipped (no mark in any of its
+    runs), shared_adds (one a token and one a match's offset)). The kernel
+    takes HIST_TILE; another tile (the model's alone) shows the sums exact
+    under any split, and one below 256 ends in a partial warp."""
     window, lens, offs, is_tok = _np(window, lens, offs, is_tok)
     B, n = window.shape
     lit = np.zeros((B, NLIT), np.int64)
     off = np.zeros((B, NOFF), np.int64)
+    stats = dict(tile=tile, blocks=0, runs=0, runs_skipped=0, warps_skipped=0, shared_adds=0)
     blocks = [(b, p0) for b in range(B) for p0 in range(0, n, tile)]
     np.random.default_rng(order_seed).shuffle(blocks)
     for b, p0 in blocks:
-        sl = slice(p0, min(p0 + tile, n))
-        s1, s2 = _token_symbols(window[b, sl], lens[b, sl], offs[b, sl])
-        tok = is_tok[b, sl]
+        end = min(p0 + tile, n)
+        n_warps = -(-(end - p0) // WARP_SPAN)
+        w0 = p0 + WARP_SPAN * np.arange(n_warps)[:, None, None]
+        # runs: [warp, lane, i] -> position w0 + RUN lane + i
+        run_pos = w0 + RUN * np.arange(32)[None, :, None] + np.arange(RUN)[None, None, :]
+        run_in = run_pos < end
+        run_tok = run_in & is_tok[b, np.minimum(run_pos, n - 1)]
+        live = run_in.any(axis=2)
+        marked = run_tok.any(axis=2)
+        stats["blocks"] += 1
+        stats["runs"] += int(live.sum())
+        stats["runs_skipped"] += int((live & ~marked).sum())
+        stats["warps_skipped"] += int((~marked.any(axis=1)).sum())
+        # steps: [warp, e, lane] -> position w0 + 32 e + lane
+        pos = w0 + 32 * np.arange(RUN)[None, :, None] + np.arange(32)[None, None, :]
+        inside = pos < end
+        at = np.minimum(pos, n - 1)
+        tok = inside & is_tok[b, at]
+        s1, s2 = _token_symbols(window[b, at], lens[b, at], offs[b, at])
         h_lit = np.bincount(s1[tok], minlength=NLIT)
         h_off = np.bincount(s2[tok & (s2 >= 0)], minlength=NOFF)
+        stats["shared_adds"] += int(tok.sum()) + int((tok & (s2 >= 0)).sum())
         if p0 == 0:
             h_lit[EOD] += 1
         lit[b] += h_lit
         off[b] += h_off
-    return (torch.from_numpy(_i32(lit)), torch.from_numpy(_i32(off)),
-            {"blocks": len(blocks)})
+    return torch.from_numpy(_i32(lit)), torch.from_numpy(_i32(off)), stats
 
 
 def emit_fields(window, best_len, best_off, lit_cw, lit_len, off_cw, off_len, is_tok):
@@ -390,16 +455,68 @@ def emit_tokens_model(window, best_len, best_off, lit_cw, lit_len, off_cw, off_l
     return torch.from_numpy(words_out), torch.from_numpy(_i32(total)), stats
 
 
-def lex_order_model(key):
-    """K14's rank count -> ((B, S) int64 order, {"rows", "ties"}): key i
-    goes to #{j: k_j < k_i} + #{j < i: k_j == k_i}; ``ties`` counts the
-    pairs of equal keys that the index ordered."""
-    k = key.cpu().numpy().astype(np.int64)
+def _rank_order(k: np.ndarray) -> np.ndarray:
+    """The warp kernel's rank count: key i goes to #{j: k_j < k_i} +
+    #{j < i: k_j == k_i}."""
     B, S = k.shape
     below = k[:, None, :] < k[:, :, None]  # [b, i, j]: k_j < k_i
     tie = (k[:, None, :] == k[:, :, None]) & (np.arange(S)[None, :] < np.arange(S)[:, None])[None]
     rank = below.sum(axis=2) + tie.sum(axis=2)
     out = np.zeros((B, S), np.int64)
     np.put_along_axis(out, rank, np.broadcast_to(np.arange(S), (B, S)), axis=1)
-    assert (np.sort(rank, axis=1) == np.arange(S)[None, :]).all()  # a permutation
-    return torch.from_numpy(out), {"rows": B, "ties": int(tie.sum())}
+    return out
+
+
+LEX_PAD = np.uint64(2**64 - 1)  # the network's pad word, after every packed key
+
+
+def _network_order(k: np.ndarray, P: int, E: int, stats: dict) -> np.ndarray:
+    """The bitonic network in numpy, stage by stage, on the kernel's words
+    (key ^ 2^31) << 32 | index padded with ~0: position t E + e starts
+    with key index e T + t (T = P / E); merge width k first meets each
+    position's mirror i ^ (k - 1) in its k-block, then i ^ j for j = k /
+    4 .. 1, the smaller word to the lower position. Counts the stages that
+    run in registers (partner in the thread), by shuffles (in the warp)
+    and through shared memory."""
+    B, S = k.shape
+    T = P // E
+    words = ((k.view(np.uint32) ^ np.uint32(2**31)).astype(np.uint64) << np.uint64(32)
+             | np.arange(S, dtype=np.uint64)[None, :])
+    i = np.arange(P)
+    src = (i % E) * T + i // E  # position t E + e <- key index e T + t
+    w = np.where(src < S, words[:, np.minimum(src, S - 1)], LEX_PAD)
+    for lk in range(1, P.bit_length()):
+        for lj in range(lk - 1, -1, -1):
+            j = 1 << lj
+            partner = i ^ ((1 << lk) - 1 if lj == lk - 1 else j)
+            lower = (i & j) == 0
+            w = np.where(lower, np.minimum(w, w[:, partner]), np.maximum(w, w[:, partner]))
+            stats["stages"] += 1
+            stats["register_stages" if j < E else "shuffle_stages" if j < 32 * E
+                  else "shared_stages"] += 1
+    assert (w[:, S:] == LEX_PAD).all()  # every pad after every key
+    return (w[:, :S] & np.uint64(0xFFFFFFFF)).astype(np.int64)
+
+
+def lex_order_model(key):
+    """K14's schedule -> ((B, S) int64 order, counters): the warp kernel's
+    rank count for S <= 32, else the network in the layout the C entry
+    picks (``lex_order_layout``). Counters: rows,
+    ties (pairs of equal keys that the index ordered), blocks, padded
+    slots, the network's stages and their register, shuffle and shared
+    counts (0 for the warp kernel)."""
+    k = key.cpu().numpy().astype(np.int32)
+    B, S = k.shape
+    srt = np.sort(k, axis=1)
+    ties = int(sum((c * (c - 1) // 2).sum() for c in (
+        np.diff(np.flatnonzero(np.r_[True, row[1:] != row[:-1], True])) for row in srt)))
+    stats = dict(rows=B, ties=ties, blocks=-(-B // (THREADS // 32)), padded=0, stages=0,
+                 register_stages=0, shuffle_stages=0, shared_stages=0)
+    if S <= 32:
+        out = _rank_order(k.astype(np.int64))
+    else:
+        P, E, rows = lex_order_layout(B, S)
+        stats.update(blocks=-(-B // rows), padded=B * (P - S))
+        out = _network_order(k, P, E, stats)
+    assert (np.sort(out, axis=1) == np.arange(S)[None, :]).all()  # a permutation
+    return torch.from_numpy(out), stats

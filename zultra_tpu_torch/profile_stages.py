@@ -327,13 +327,24 @@ def main() -> int:
     for s, count, key in kernels[:15]:
         print(f"  {s:.4f} s  {count:7d}x  {key[:90]}")
     # A port kernel is ``{name}_kernel`` or, where one call makes several
-    # launches, ``{name}_{phase}_kernel`` (the DP's spec, check, fixup).
-    ours = [{"name": m.group(1), "s": s, "count": c, "us_per_launch": s / c * 1e6}
-            for name in launches for s, c, k in kernels
-            if (m := re.search(rf"::({name}(?:_[a-z]+)?)_kernel\(", k))]
+    # launches, ``{name}_{phase}_kernel`` (the DP's spec, check, fixup),
+    # or an instance of such a template (K12's, K14's network): one row a
+    # name, its instances summed and listed beside.
+    ours = {}
+    for name in launches:
+        for s, c, k in kernels:
+            if m := re.search(rf"::({name}(?:_[a-z]+)?)_kernel(<[^>]*>)?\(", k):
+                row = ours.setdefault(m.group(1), {"name": m.group(1), "s": 0.0, "count": 0,
+                                                   "instances": []})
+                row["s"] += s
+                row["count"] += c
+                row["instances"].append({"template": m.group(2) or "", "s": s, "count": c})
+    ours = [dict(k, us_per_launch=k["s"] / k["count"] * 1e6) for k in ours.values()]
     for k in ours:
+        split = "; ".join(f"{i['template']} {i['count']}x {i['s'] / i['count'] * 1e6:.2f} us"
+                          for i in k["instances"]) if len(k["instances"]) > 1 else ""
         print(f"  port kernel {k['name']}: {k['s']:.6f} s over {k['count']} launches, "
-              f"{k['us_per_launch']:.2f} us each")
+              f"{k['us_per_launch']:.2f} us each" + (f" ({split})" if split else ""))
     # Every golden case's match programs, after the measurements above (its
     # captures add graphs to the pool).
     print("match programs of the golden cases:")
