@@ -22,10 +22,13 @@ histogram on the 4 MiB corpus, an unaligned view, 64 MiB of seeded
 bytes and 64 MiB of one value, beside ``torch.bincount``; and the three
 kernels of the planner's and splitter's scans at the shapes the 4 MiB
 gzip run gives them: the RLE decision sweep (every histogram batch of
-the planner), the RLE statistics (the mask search's 20 masks in one
-launch a mode, the splitter's largest one-mask calls) and the prefix
-tables (4 x 2^21 tokens and a seeded lane of one 64 KiB window, beside
-``torch.cumsum`` of their one-hot); and the four kernels of the planner's
+the planner), the RLE statistics (every shape the run called, from
+the code lengths themselves: the mask search's 20 masks in one launch a
+mode, the one-mask calls of the dynamic costs; the histograms also
+with their bins summed the other way; beside the launch floor) and the
+prefix tables (4 x 2^21 tokens and a seeded lane of one 64 KiB window,
+with each of a call's three launches, beside ``torch.cumsum`` of their
+one-hot), each with its bound over the run; and the four kernels of the planner's
 fused passes (``csrc/plan.cu``) at the shapes the 4 MiB gzip run gives
 them: the DP's lane preparation and the emission on every planner
 bucket, the token histograms on every bucket with the splitter's marks
@@ -89,6 +92,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -171,6 +175,26 @@ def bound_ms(*tensors) -> float:
     """Least time to read every input and write every output once at the
     card's memory rate (the kernels do no tensor-core work)."""
     return bytes_ms(nbytes(*tensors))
+
+
+def launch_device_ms(fn, kernel: str, reps: int) -> dict:
+    """{kernel name: mean device ms a launch} of the CUDA kernels
+    ``{kernel}_{phase}_kernel`` over ``reps`` calls of ``fn`` (a
+    torch.profiler trace after one warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    found = {}
+    for ev in prof.key_averages():
+        m = re.search(rf"::({kernel}_[a-z]+_kernel)", ev.key)
+        if m and ev.count:
+            found[m.group(1)] = ev.self_device_time_total / ev.count / 1e3
+    return found
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
@@ -352,7 +376,7 @@ def main() -> int:
     # The scans' arguments of the run, by shape: the sweep's histograms, the
     # RLE statistics' calls (mode, lanes, masks), the splitter's tokens.
     real_sweep = block_torch.optimize_for_rle
-    real_hist, real_bits = entropy_torch.rle_histogram_masks, entropy_torch.rle_bits_masks
+    real_hist, real_bits = entropy_torch.rle_histogram_tables, entropy_torch.rle_bits_tables
     real_prefix = split_torch.prefix_tables
     scan_args = {"rle_sweep": {}, "rle_stats": {}, "prefix_tables": {}}
     # The fused passes' arguments of the run, by shape: the token histograms
@@ -362,7 +386,7 @@ def main() -> int:
     # And how often the run calls the histograms and the sorts at each
     # shape (a program's eager first call launches what its replays do):
     # each shape's bound times its calls, summed, is the bound over the run.
-    fused_calls = {"token_hist": {}, "lex_order": {}}
+    fused_calls = {"token_hist": {}, "lex_order": {}, "rle_stats": {}, "prefix_tables": {}}
 
     # The planner and the splitter are programs (ops/programs.py): the
     # first call of each shape runs eagerly, the second is captured into a
@@ -382,19 +406,23 @@ def main() -> int:
         record(scan_args["rle_sweep"], tuple(counts.shape), lambda: (counts.clone(),))
         return real_sweep(counts)
 
-    def recording_hist(lens, n_def, masks):
-        record(scan_args["rle_stats"], ("histogram", lens.shape[0], len(masks)),
-               lambda: (lens.clone(), n_def.clone(), tuple(masks)))
-        return real_hist(lens, n_def, masks)
+    def recording_hist(lit, off, masks):
+        key = ("histogram", lit.shape[0], len(masks))
+        record(scan_args["rle_stats"], key, lambda: (lit.clone(), off.clone(), tuple(masks)))
+        count(fused_calls["rle_stats"], key)
+        return real_hist(lit, off, masks)
 
-    def recording_bits(lens, n_def, te, masks):
-        record(scan_args["rle_stats"], ("bits", lens.shape[0], len(masks)),
-               lambda: (lens.clone(), n_def.clone(), te.clone(), tuple(masks)))
-        return real_bits(lens, n_def, te, masks)
+    def recording_bits(lit, off, te, masks):
+        key = ("bits", lit.shape[0], len(masks))
+        record(scan_args["rle_stats"], key,
+               lambda: (lit.clone(), off.clone(), te.clone(), tuple(masks)))
+        count(fused_calls["rle_stats"], key)
+        return real_bits(lit, off, te, masks)
 
     def recording_prefix(*args):
         record(scan_args["prefix_tables"], tuple(args[0].shape),
                lambda: tuple(a.clone() for a in args))
+        count(fused_calls["prefix_tables"], tuple(args[0].shape))
         return real_prefix(*args)
 
     def recording_run_dp(*args):
@@ -424,7 +452,7 @@ def main() -> int:
     block_torch.run_dp = recording_run_dp
     block_torch.token_hist, block_torch.emit_tokens = recording_token_hist, recording_emit
     block_torch.optimize_for_rle = recording_sweep
-    entropy_torch.rle_histogram_masks, entropy_torch.rle_bits_masks = recording_hist, recording_bits
+    entropy_torch.rle_histogram_tables, entropy_torch.rle_bits_tables = recording_hist, recording_bits
     split_torch.prefix_tables = recording_prefix
     entropy_torch._lex_order = recording_lex
     try:
@@ -443,7 +471,7 @@ def main() -> int:
         block_torch.run_dp = real_run_dp
         block_torch.token_hist, block_torch.emit_tokens = real_token_hist, real_emit
         block_torch.optimize_for_rle = real_sweep
-        entropy_torch.rle_histogram_masks, entropy_torch.rle_bits_masks = real_hist, real_bits
+        entropy_torch.rle_histogram_tables, entropy_torch.rle_bits_tables = real_hist, real_bits
         split_torch.prefix_tables = real_prefix
         entropy_torch._lex_order = real_lex
     for n_pad, args in sorted(buckets.items()):
@@ -623,15 +651,16 @@ def main() -> int:
 
     # The planner's and splitter's scans at the shapes of the 4 MiB gzip
     # run (recorded above): the RLE sweep on every histogram batch the
-    # planner gave it, the RLE statistics on the splitter's largest call
-    # and the planner's mask search (20 masks a launch), in both modes,
-    # and the prefix tables on the splitter's 4 x 2^21 tokens, beside
-    # torch.cumsum of their (W, n, 18) one-hot along the tokens (P18's
-    # part; the one-hot built beforehand). Each against its plain form on
-    # the card, with ms by events and the device ms of a call from a trace.
-    # The bound counts the bytes this run's data needs (``need``: the
-    # statistics read a lane's first n_def lengths, the prefix tables the
-    # tokens below n_tok), else every input and output once.
+    # planner gave it, the RLE statistics at every shape of the run (the
+    # dynamic costs' one mask a call, the mask searches' 20), in both
+    # modes, and the prefix tables on the splitter's 4 x 2^21 tokens,
+    # beside torch.cumsum of their (W, n, 18) one-hot along the tokens
+    # (P18's part; the one-hot built beforehand). Each against its plain
+    # form on the card, with ms by events and the device ms of a call from
+    # a trace. The bound counts the bytes this run's data needs (``need``:
+    # the prefix tables read the tokens below n_tok), else every input and
+    # output once (the statistics: the whole lit/off tables, te and the
+    # outputs).
     def scan_row(name, label, kernel, plain, args, reps, library=None, need=None,
                  library_name="torch.cumsum"):
         got = kernel(*args)
@@ -659,31 +688,48 @@ def main() -> int:
                                              key=lambda kv: (-kv[0][1], -kv[0][0]))]
     results["rle_sweep"] = dict(sweep_rows[0], plain_device="cuda", rows=sweep_rows)
 
-    def stats_plain(lens, n_def, *rest):
+    def over_run(name, rows, keys):  # rows[i] is the run's shape keys[i]
+        for row, key in zip(rows, keys):
+            row["run_launches"] = fused_calls[name][key]
+        total = sum(r["run_launches"] * r["bound_ms"] for r in rows[:len(keys)])
+        print(f"{name} over the run: {sum(fused_calls[name].values())} calls "
+              f"({eager_counts[name]} launches counted), bound {total:.4g} ms")
+        return total
+
+    # The RLE statistics take the code lengths themselves (the concatenation
+    # in the kernel). Every shape of the run, both modes, beside the plain
+    # form (the concatenation, then the statistics a mask, on the card), and
+    # the launch floor: one lane of no length (rows already concatenated,
+    # n_def 0).
+    def stats_plain(lit, off, *rest):
         masks = rest[-1]
+        lens, n_lit, n_off, n_def = rle_cuda.concat_lengths(lit, off)
         if len(rest) == 1:
-            return torch.cat([rle_cuda.rle_histogram_plain(lens, n_def, m) for m in masks])
-        B = lens.shape[0]
+            return (torch.cat([rle_cuda.rle_histogram_plain(lens, n_def, m) for m in masks]),
+                    n_lit, n_off)
+        B = lit.shape[0]
         return torch.cat([rle_cuda.rle_bits_plain(lens, n_def, rest[0][i * B:(i + 1) * B], m)
                           for i, m in enumerate(masks)])
 
-    def stats_kernel(lens, n_def, *rest):
+    def stats_kernel(lit, off, *rest):
         if len(rest) == 1:
-            return rle_cuda.rle_histogram_masks(lens, n_def, rest[0])
-        return rle_cuda.rle_bits_masks(lens, n_def, *rest)
-
-    def stats_need(args, outs):
-        lens, n_def, *rest = args
-        te = [t for t in rest if torch.is_tensor(t)]
-        return 4 * int(n_def.clamp(0, lens.shape[1]).sum()) + nbytes(n_def, *te, *outs)
+            return rle_cuda.rle_histogram_tables(lit, off, rest[0])
+        return rle_cuda.rle_bits_tables(lit, off, *rest)
 
     stats_keys = sorted(scan_args["rle_stats"], key=lambda k: (-k[2], -k[1], k[0]))
-    picked = [k for k in stats_keys if k[2] > 1][:2]  # the mask search's largest, both modes
-    picked += [k for k in stats_keys if k[2] == 1][:2]  # the largest one-mask calls
-    stats_rows = [scan_row("rle_stats", f"{mode}, {B} lanes x {M} masks", stats_kernel,
-                           stats_plain, scan_args["rle_stats"][mode, B, M], 20, need=stats_need)
-                  for mode, B, M in picked]
-    results["rle_stats"] = dict(stats_rows[0], plain_device="cuda", rows=stats_rows)
+    stats_rows = []
+    for mode, B, M in stats_keys:
+        args = scan_args["rle_stats"][mode, B, M]
+        stats_rows.append(scan_row("rle_stats", f"{mode}, {B} lanes x {M} masks", stats_kernel,
+                                   stats_plain, args, 20))
+    floor_lens = torch.zeros((1, 19), dtype=torch.int32, device=dev)
+    floor_nd = torch.zeros(1, dtype=torch.int32, device=dev)
+    stats_floor = device_ms(lambda: rle_cuda.rle_histogram_masks(floor_lens, floor_nd, (7,)),
+                            "rle_stats", 50)
+    print(f"rle_stats launch floor (1 lane, n_def 0, 1 mask): device {fmt_ms(stats_floor)}")
+    results["rle_stats"] = dict(stats_rows[0], plain_device="cuda", rows=stats_rows,
+                                launch_floor_device_ms=stats_floor,
+                                run_bound_ms=over_run("rle_stats", stats_rows, stats_keys))
 
     def prefix_need(args, outs):  # three int32 rows of the tokens below n_tok
         tokens = int(args[3].clamp(0, args[0].shape[1]).sum())
@@ -691,14 +737,16 @@ def main() -> int:
 
     # Also a lane of one 64 KiB window, as a window planned alone gives
     # the splitter (seeded tokens, a fifth of its bytes as the gzip run
-    # has): the small call, three chunks of 128 strides.
+    # has): the small call, 33 tiles. Each row also with the device time of
+    # each of a call's three launches (count, scan, write).
     trng = np.random.default_rng(11)
     window_tokens = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
         trng.integers(0, 18, (1, 1 << 16)), trng.integers(0, 286, (1, 1 << 16)),
         np.where(trng.random((1, 1 << 16)) < 0.4, trng.integers(288, 318, (1, 1 << 16)), 320),
         np.array([13107]))]
-    prefix_calls = [(f"splitter {W_p} x {n_p}", args) for (W_p, n_p), args
-                    in sorted(scan_args["prefix_tables"].items(), reverse=True)]
+    prefix_keys = sorted(scan_args["prefix_tables"], reverse=True)
+    prefix_calls = [(f"splitter {W_p} x {n_p}", scan_args["prefix_tables"][W_p, n_p])
+                    for W_p, n_p in prefix_keys]
     prefix_rows = []
     for label, args in prefix_calls + [("one window 1 x 65536", window_tokens)]:
         onehot = ((args[0][:, :, None] == torch.arange(18, dtype=torch.int32, device=dev))
@@ -708,10 +756,16 @@ def main() -> int:
             "prefix_tables", label, prefix_cuda.prefix_tables, prefix_cuda.prefix_tables_plain,
             args, 10, library=lambda: torch.cumsum(onehot, dim=1, dtype=torch.int32),
             need=prefix_need))
-        prefix_rows[-1]["n_tok"] = args[3].tolist()
-        print(f"prefix_tables [{label}]: n_tok {prefix_rows[-1]['n_tok']}")
+        row = prefix_rows[-1]
+        row["n_tok"] = args[3].tolist()
+        row["launch_device_ms"] = launch_device_ms(lambda: prefix_cuda.prefix_tables(*args),
+                                                   "prefix_tables", 10)
+        print(f"prefix_tables [{label}]: n_tok {row['n_tok']}; device ms a launch "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(row["launch_device_ms"].items())))
         del onehot
-    results["prefix_tables"] = dict(prefix_rows[0], plain_device="cuda", rows=prefix_rows)
+    results["prefix_tables"] = dict(prefix_rows[0], plain_device="cuda", rows=prefix_rows,
+                                    run_bound_ms=over_run("prefix_tables", prefix_rows,
+                                                          prefix_keys))
     del scan_args
 
     # The planner's fused passes at the shapes of the 4 MiB gzip run
@@ -742,14 +796,6 @@ def main() -> int:
         match = is_tok & (lens >= 3)
         return (is_tok.numel() + 4 * int(is_tok.sum()) + 4 * int(match.sum())
                 + int((is_tok & ~match).sum()) + nbytes(*outs))
-
-    def over_run(name, rows, keys):  # rows[i] is the run's shape keys[i]
-        for row, key in zip(rows, keys):
-            row["run_launches"] = fused_calls[name][key]
-        total = sum(r["run_launches"] * r["bound_ms"] for r in rows[:len(keys)])
-        print(f"{name} over the run: {sum(fused_calls[name].values())} calls "
-              f"({eager_counts[name]} launches counted), bound {total:.4g} ms")
-        return total
 
     hist_keys = sorted(fused_args["token_hist"])
     hist_rows_f = [scan_row(

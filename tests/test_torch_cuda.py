@@ -344,9 +344,75 @@ def test_rle_stats_kernel_equals_plain(cuda, L, B):
                            rle_cuda.rle_histogram_plain(lens, n_def, mask))
 
 
+def _table_rows(rng, B):
+    """Code-length tables: lit rows whose last nonzero is below 257, at
+    287, all zero; off rows all zero and full; runs of 3, 7, 11, 138, 139
+    equal values; seeded rows."""
+    lit = np.repeat(rng.integers(0, 16, (B, 288)), rng.integers(1, 12, 288), axis=1)[:, :288]
+    lit = np.where(rng.random((B, 288)) < 0.3, 0, lit)
+    off = np.where(rng.random((B, 32)) < 0.4, 0, rng.integers(1, 16, (B, 32)))
+    edges = [(np.r_[np.full(100, 7), np.zeros(188)], np.zeros(32)),
+             (np.r_[np.zeros(287), 9], np.full(32, 4)), (np.zeros(288), np.zeros(32))]
+    for k in (3, 7, 11, 138, 139):
+        edges.append((np.r_[np.full(2, 4), np.zeros(k), np.full(k, 8), np.zeros(288)][:288],
+                      np.r_[np.full(k % 32, 5), np.zeros(32)][:32]))
+    for i, (lr, orow) in enumerate(edges[:B]):
+        lit[i], off[i] = lr, orow
+    return (torch.from_numpy(lit.astype(np.int32)), torch.from_numpy(off.astype(np.int32)))
+
+
+@pytest.mark.parametrize("B", [1, 8, 84, 4096])
+def test_rle_stats_tables_kernel_equals_plain(cuda, B):
+    """The fused statistics (the concatenation in the kernel) on aligned
+    and misaligned tables, both modes, one mask and all 20, equal the plain
+    form (n_lit and n_off too), one rle_stats launch a call; a trace of
+    the calls shows the statistics kernels and nothing else (no
+    concatenation ops)."""
+    rng = np.random.default_rng(B)
+    lit, off = _table_rows(rng, B)
+    for masks in ((7,), (31,), MASK_ORDER):
+        te = torch.from_numpy(rng.integers(0, 8, (len(masks) * B, 19)).astype(np.int32))
+        want_h = rle_cuda.rle_histogram_tables(lit, off, masks)
+        want_b = rle_cuda.rle_bits_tables(lit, off, te, masks)
+        for rows in ((lit.to(cuda), off.to(cuda)), (_misaligned(lit.to(cuda)),
+                                                    _misaligned(off.to(cuda)))):
+            ops.reset_launch_counts()
+            got_h = rle_cuda.rle_histogram_tables(*rows, masks)
+            got_b = rle_cuda.rle_bits_tables(*rows, _misaligned(te.to(cuda)), masks)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["rle_stats"] == 2
+            for g, w in zip(got_h, want_h):
+                assert torch.equal(g.cpu(), w)
+            assert torch.equal(got_b.cpu(), want_b)
+        L, O, T = lit.to(cuda), off.to(cuda), te.to(cuda)
+        names = _device_kernels(lambda: (rle_cuda.rle_histogram_tables(L, O, masks),
+                                         rle_cuda.rle_bits_tables(L, O, T, masks)), "rle_stats")
+        assert names and all("rle_stats" in n for n in names), names
+        assert sum(names.values()) <= 2 * TRACED_CALLS, names
+
+
+def test_rle_stats_long_n_def_equals_plain(cuda):
+    """Rows already concatenated whose n_def passes their width (the last
+    run reaches it): one mask packed (n_def < 2^PACK_BITS) or summed by
+    __match_any_sync (n_def from 2^PACK_BITS), and all 20 masks, both
+    modes, equal the plain form."""
+    rng = np.random.default_rng(9)
+    n_def = torch.tensor([1023, 1024, 5000, 1 << 20, 7, 320], dtype=torch.int32)
+    lens, _ = _len_rows(rng, len(n_def), 320)
+    lens[:, -40:] = 0
+    for masks in ((7,), (31,), MASK_ORDER):
+        te = torch.from_numpy(rng.integers(0, 8, (len(masks) * len(n_def), 19)).astype(np.int32))
+        want_h = rle_cuda.rle_histogram_masks(lens, n_def, masks)
+        want_b = rle_cuda.rle_bits_masks(lens, n_def, te, masks)
+        L, N, T = lens.to(cuda), n_def.to(cuda), te.to(cuda)
+        assert torch.equal(rle_cuda.rle_histogram_masks(L, N, masks).cpu(), want_h)
+        assert torch.equal(rle_cuda.rle_bits_masks(L, N, T, masks).cpu(), want_b)
+
+
 def test_mask_search_one_stats_launch_a_mode(cuda):
-    """mask_search on the card equals its CPU form, with one rle_stats
-    launch for the histograms of all 20 masks and one for their bits."""
+    """mask_search and dynamic_cost on the card equal their CPU forms, with
+    one rle_stats launch for the histograms of all 20 masks and one for
+    their bits, and one a mode for a dynamic cost."""
     rng = np.random.default_rng(5)
     lit = torch.from_numpy(np.where(rng.random((40, 288)) < 0.6,
                                     rng.integers(1, 3000, (40, 288)), 0).astype(np.int32))
@@ -360,9 +426,14 @@ def test_mask_search_one_stats_launch_a_mode(cuda):
     assert ops.launch_counts()["rle_stats"] == 2
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+    ops.reset_launch_counts()
+    got = entropy_torch.dynamic_cost(lit.to(cuda), off.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rle_stats"] == 2
+    assert torch.equal(got.cpu(), entropy_torch.dynamic_cost(lit, off))
     ll, ol = ll.to(cuda), ol.to(cuda)
-    names = _device_kernels(lambda: mask_search(ll, ol), "rle_stats_kernel")
-    stats = sum(c for n, c in names.items() if "rle_stats_kernel" in n)
+    names = _device_kernels(lambda: mask_search(ll, ol), "rle_stats_masks_kernel")
+    stats = sum(c for n, c in names.items() if "rle_stats_masks_kernel" in n)
     assert 1 <= stats <= 2 * TRACED_CALLS, names  # at most two a call
 
 
@@ -374,19 +445,26 @@ def _token_lanes(rng, W, n, n_tok):
             for a in (bucket, sym1, sym2, np.asarray(n_tok))]
 
 
-_CHUNK = prefix_cuda.SPC * 256  # tokens a chunk of the kernels
+_CHUNK = 32768  # tokens a chunk of the kernel before tiles (a lane of many tiles)
+_TILE = prefix_cuda.TILE
 
 
 @pytest.mark.parametrize("n,n_tok", [
     (1 << 21, (1 << 21, 1_500_000, 2_000_000, 1234)),
     (8192, (0, 512, 8192)), (1000, (1000, 256, 999)),
-    (2 * _CHUNK + 1000, (2 * _CHUNK + 1000, 2 * _CHUNK, _CHUNK, _CHUNK - 1, _CHUNK + 1))])
+    (2 * _CHUNK + 1000, (2 * _CHUNK + 1000, 2 * _CHUNK, _CHUNK, _CHUNK - 1, _CHUNK + 1)),
+    (1 << 21, (203_000, 210_000, 190_000, 211_659)), (1 << 16, (13107,)),
+    (3 * _TILE - 1, (3 * _TILE - 1, _TILE - 2, _TILE - 1, _TILE)),
+    (2 * _TILE, (_TILE - 1, _TILE, _TILE + 1)), (2 * _TILE + 1, (0, 1, 2 * _TILE + 1))])
 def test_prefix_tables_kernel_equals_plain(cuda, n, n_tok):
-    """The prefix tables on the card (two kernel launches, one call) equal
-    the plain form: the splitter's 4 x 2^21 lanes, no token, tokens
-    ending on a stride boundary, a lane not a multiple of 256, a lane of
-    three chunks with tokens ending on, before and after a chunk
-    boundary; inputs aligned and misaligned."""
+    """The prefix tables on the card (three kernel launches, one call)
+    equal the plain form: the splitter's 4 x 2^21 lanes (full and with the
+    gzip run's share of tokens), one 64 KiB window's lane, no token,
+    tokens ending on a stride boundary, a lane not a multiple of 256, a
+    lane of many tiles; tiles aligned in the flat row index with every
+    lane starting one (n + 1 a multiple of the tile) or cut at the lanes'
+    heads and tails (W = 3, n even and odd), tokens ending on, before and
+    after a tile's rows; inputs aligned and misaligned."""
     args = _token_lanes(np.random.default_rng(n), len(n_tok), n, n_tok)
     want = prefix_cuda.prefix_tables_plain(*args)
     dev_args = [a.to(cuda) for a in args]
@@ -399,10 +477,11 @@ def test_prefix_tables_kernel_equals_plain(cuda, n, n_tok):
             assert torch.equal(g.cpu(), w)
     names = _device_kernels(lambda: prefix_cuda.prefix_tables(*dev_args),
                             "prefix_tables_")
-    # the count and the write kernel and nothing else, each at most once a call
-    assert sorted(k for k in ("count", "write") for n in names
-                  if f"prefix_tables_{k}_kernel" in n) == ["count", "write"], names
-    assert len(names) == 2 and max(names.values()) <= TRACED_CALLS, names
+    # the count, scan and write kernels and nothing else, each at most once a call
+    phases = ("count", "scan", "write")
+    assert sorted(k for k in phases for n in names
+                  if f"prefix_tables_{k}_kernel" in n) == sorted(phases), names
+    assert len(names) == 3 and max(names.values()) <= TRACED_CALLS, names
 
 
 def test_split_batch_builds_no_one_hot(cuda, monkeypatch):

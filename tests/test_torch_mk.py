@@ -98,7 +98,8 @@ def test_mask_search_stacked_batch_equals_jax():
     lit = np.array(ej.build_lengths(jnp.asarray(_hists(7, 12, 288)), 15))
     off = np.array(ej.build_lengths(jnp.asarray(_hists(8, 12, 32)), 15))
     lt, ot = torch.from_numpy(lit), torch.from_numpy(off)
-    hists, lens, _, _, n_def = et.mask_histograms(lt, ot)
+    hists, _, _ = et.mask_histograms(lt, ot)
+    lens, _, _, n_def = et._concat_lengths(lt, ot)
     assert hists.shape == (len(et.MASK_ORDER) * 12, 19)
     for i, mask in enumerate(et.MASK_ORDER):
         want = ej.rle_histogram(jnp.asarray(lens.numpy()), jnp.asarray(n_def.numpy()), mask)

@@ -152,9 +152,10 @@ def test_rle_stats_plain_and_model_equal_jax_every_mask(stats_case, L):
     lt, nt, tt = torch.from_numpy(lens), torch.from_numpy(n_def), torch.from_numpy(te[L])
     hists = rc.rle_histogram_masks(lt, nt, MASKS)
     bits = rc.rle_bits_masks(lt, nt, tt, MASKS)
-    m_hists, h_stats = rc.rle_stats_model(lt, nt, MASKS)
-    m_bits, _ = rc.rle_stats_model(lt, nt, MASKS, tt)
+    m_hists, _, _, h_stats = rc.rle_stats_model(lt, None, nt, MASKS)
+    m_bits, *_ = rc.rle_stats_model(lt, None, nt, MASKS, tt)
     assert h_stats["rows"] == len(MASKS) * B and h_stats["runs"] > 0
+    assert h_stats["lanes"] == B  # a lane's runs found once for all its masks
     for i, mask in enumerate(MASKS):
         rows = slice(i * B, (i + 1) * B)
         want_h, want_b = want[L, mask]
@@ -164,6 +165,36 @@ def test_rle_stats_plain_and_model_equal_jax_every_mask(stats_case, L):
         _eq(want_b, m_bits[rows], f"model bits, mask {mask}")
         _eq(want_h, et.rle_histogram(lt, nt, mask), f"entropy_torch histogram, mask {mask}")
         _eq(want_b, et.rle_bits(lt, nt, tt[rows], mask), f"entropy_torch bits, mask {mask}")
+
+
+@pytest.mark.parametrize("mask", [7, 31])
+def test_rle_stats_long_n_def_equal_jax(mask):
+    """Rows already concatenated whose n_def passes their width: the last
+    run reaches n_def, so one mask's bins can pass the packed fields'
+    PACK_BITS bits (n_def 1023 still packs; 1024 and beyond take the
+    __match_any_sync sum). Plain form and model (one mask, and every mask)
+    against entropy_jax.rle_histogram / rle_bits."""
+    rng = np.random.default_rng(mask)
+    L = 320
+    n_def = np.asarray([1023, 1024, 5000, 1 << 20, 7, 320], np.int32)
+    lens = np.repeat(rng.integers(0, 16, (len(n_def), L)), rng.integers(1, 9, L), axis=1)[:, :L]
+    lens[:, -40:] = 0  # a last run of zeros, reaching n_def
+    lens[1, -40:] = 6  # a nonzero one
+    te = rng.integers(0, 8, (len(n_def), 19)).astype(np.int32)
+    lj, nj = jnp.asarray(lens.astype(np.int32)), jnp.asarray(n_def)
+    want_h = ej.rle_histogram(lj, nj, mask)
+    want_b = ej.rle_bits(lj, nj, jnp.asarray(te), mask)
+    assert int(np.asarray(want_h).sum(axis=1).max()) >= 1 << rc.PACK_BITS
+    lt, nt, tt = torch.from_numpy(lens.astype(np.int32)), torch.from_numpy(n_def), torch.from_numpy(te)
+    _eq(want_h, rc.rle_histogram_masks(lt, nt, (mask,)), "plain histogram")
+    _eq(want_b, rc.rle_bits_masks(lt, nt, tt, (mask,)), "plain bits")
+    got_h, _, _, stats = rc.rle_stats_model(lt, None, nt, (mask,))
+    assert stats["packed_rows"] == int((n_def < 1 << rc.PACK_BITS).sum())
+    _eq(want_h, got_h, "model histogram")
+    _eq(want_b, rc.rle_stats_model(lt, None, nt, (mask,), tt)[0], "model bits")
+    all_h = rc.rle_stats_model(lt, None, nt, MASKS)[0]
+    i = MASKS.index(mask)
+    _eq(want_h, all_h[i * len(n_def):(i + 1) * len(n_def)], "model histogram, every mask")
 
 
 def test_mask_search_plain_and_model_equal_jax(monkeypatch):
@@ -178,13 +209,82 @@ def test_mask_search_plain_and_model_equal_jax(monkeypatch):
     want = jax.jit(ej.mask_search)(jnp.asarray(llt.numpy()), jnp.asarray(olt.numpy()))
     for got, w in zip(et.mask_search(llt, olt), want):
         _eq(w, got, "plain")
-    monkeypatch.setattr(et, "rle_histogram_masks",
-                        lambda lens, n_def, masks: rc.rle_stats_model(lens, n_def, masks)[0])
-    monkeypatch.setattr(et, "rle_bits_masks",
-                        lambda lens, n_def, te, masks: rc.rle_stats_model(lens, n_def, masks,
-                                                                          te)[0])
+    monkeypatch.setattr(et, "rle_histogram_tables",
+                        lambda lit, off, masks: rc.rle_stats_model(lit, off, None, masks)[:3])
+    monkeypatch.setattr(et, "rle_bits_tables",
+                        lambda lit, off, te, masks: rc.rle_stats_model(lit, off, None, masks,
+                                                                       te)[0])
     for got, w in zip(et.mask_search(llt, olt), want):
         _eq(w, got, "model")
+
+
+def _table_lanes(seed):
+    """Code-length tables (lit_len (B, 288), off_len (B, 32)) for the fused
+    statistics: lit rows whose last nonzero is below 257, at 287 and all
+    zero; off rows all zero (n_off 1) and full (32); rows with runs of 3,
+    7, 11, 138 and 139 equal values (zero and nonzero, some across the
+    lit/off seam); seeded rows of runs."""
+    rng = np.random.default_rng(seed)
+    lit, off = [], []
+
+    def add(lit_parts, off_row):
+        r = np.concatenate([np.full(k, v, np.int32) for v, k in lit_parts]
+                           + [np.zeros(288, np.int32)])[:288]
+        lit.append(r)
+        off.append(np.asarray(off_row, np.int32))
+
+    full_off = rng.integers(1, 16, 32)
+    add([(7, 100)], np.zeros(32))  # last nonzero below 257, no offset length
+    add([(0, 287), (9, 1)], full_off)  # last nonzero at 287
+    add([], np.zeros(32))  # all zero: n_lit 257, n_off 1
+    add([], full_off)
+    for k in (3, 7, 11, 138, 139):
+        add([(4, 2), (0, k), (8, k), (2, 3)], np.concatenate([np.full(k % 32, 5), np.zeros(32)])[:32])
+        add([(6, 250), (0, 7 + k % 10)], np.full(32, 0 if k < 11 else 3))  # zeros across the seam
+    for _ in range(12):
+        r = np.repeat(rng.integers(0, 16, 288), rng.integers(1, 12, 288))[:288]
+        lit.append(np.where(rng.random(288) < 0.3, 0, r).astype(np.int32))
+        o = np.where(rng.random(32) < 0.4, 0, rng.integers(1, 16, 32))
+        o[rng.integers(1, 33):] = 0
+        off.append(o.astype(np.int32))
+    return np.stack(lit), np.stack(off)
+
+
+@pytest.mark.parametrize("seed", [17, 29])
+def test_rle_stats_tables_plain_and_model_equal_jax(seed):
+    """The fused statistics (the concatenation of lit_len and off_len in
+    the kernel): the plain form and the model (all masks in one call, by
+    classes; each mask alone, its bins summed packed) against
+    entropy_jax._concat_lengths then rle_histogram / rle_bits under every
+    mask of MASK_ORDER, with n_lit and n_off."""
+    lit, off = _table_lanes(seed)
+    B = lit.shape[0]
+    lens, n_lit, n_off, n_def = jax.jit(ej._concat_lengths)(jnp.asarray(lit), jnp.asarray(off))
+    assert set(np.asarray(n_lit)) >= {257, 288} and set(np.asarray(n_off)) >= {1, 32}
+    te = np.random.default_rng(3).integers(0, 8, (len(MASKS) * B, 19)).astype(np.int32)
+    lt, ot, tt = torch.from_numpy(lit), torch.from_numpy(off), torch.from_numpy(te)
+    hists, p_lit, p_off = rc.rle_histogram_tables(lt, ot, MASKS)
+    bits = rc.rle_bits_tables(lt, ot, tt, MASKS)
+    m_hists, m_lit, m_off, stats = rc.rle_stats_model(lt, ot, None, MASKS)
+    m_bits, *_ = rc.rle_stats_model(lt, ot, None, MASKS, tt)
+    assert stats["lanes"] == B and stats["rows"] == len(MASKS) * B and stats["class_counts"] > 0
+    for name, got in (("plain", (p_lit, p_off)), ("model", (m_lit, m_off))):
+        _eq(n_lit, got[0], f"{name} n_lit")
+        _eq(n_off, got[1], f"{name} n_off")
+    for i, mask in enumerate(MASKS):
+        rows = slice(i * B, (i + 1) * B)
+        want_h = ej.rle_histogram(lens, n_def, mask)
+        want_b = ej.rle_bits(lens, n_def, jnp.asarray(te[rows]), mask)
+        _eq(want_h, hists[rows], f"plain histogram, mask {mask}")
+        _eq(want_h, m_hists[rows], f"model histogram, mask {mask}")
+        _eq(want_b, bits[rows], f"plain bits, mask {mask}")
+        _eq(want_b, m_bits[rows], f"model bits, mask {mask}")
+        # one mask a call: a warp a lane, every row's bins packed (n_def <= 320)
+        one_h, _, _, one = rc.rle_stats_model(lt, ot, None, (mask,))
+        one_b, *_ = rc.rle_stats_model(lt, ot, None, (mask,), tt[rows])
+        assert one["steps"] > 0 and one["packed_rows"] == B and one["group_adds"] == 0
+        _eq(want_h, one_h, f"model histogram, mask {mask} alone")
+        _eq(want_b, one_b, f"model bits, mask {mask} alone")
 
 
 def _numpy_prefix_tables(bucket, sym1, sym2, n_tok):
@@ -213,8 +313,15 @@ def _check_prefix(bucket, sym1, sym2, n_tok):
     for name, w, g in zip(("P18", "P256"), want, got):
         _eq(w, g, f"model {name}")
     W, n = bucket.shape
-    assert stats["p18_rows"] == W * (n + 1)
-    assert stats["chunks"] == W * -(-(n // 256 + 1) // pc.SPC)
+    assert stats["p18_rows"] == W * (n + 1) and stats["p256_rows"] == W * (n // 256 + 2)
+    nt = np.clip(n_tok, 0, n)
+    assert stats["tokens_counted"] == int(nt.sum())
+    # a tile a TILE-aligned run of the lane's flat rows; those holding a token below n_tok
+    assert stats["tiles"] == sum(((w + 1) * (n + 1) - 1) // pc.TILE - w * (n + 1) // pc.TILE + 1
+                                 for w in range(W))
+    assert stats["valid_tiles"] == sum((w * (n + 1) + t) // pc.TILE - w * (n + 1) // pc.TILE + 1
+                                       for w, t in enumerate(nt) if t > 0)
+    return stats
 
 
 def _window_lanes(n, seed):
@@ -256,23 +363,37 @@ def test_prefix_tables_equal_numpy_of_jax_tokens():
     _check_prefix(bucket, sym1, sym2, n_tok.astype(np.int32))
 
 
-CHUNK = pc.SPC * 256  # tokens a chunk of the kernels
+CHUNK = 32768  # tokens a chunk of the kernel before tiles (a lane of many tiles)
+TILE = pc.TILE  # rows of P18 a tile
 
 
 @pytest.mark.parametrize("n,n_tok", [(8192, (0, 512, 8192)), (1000, (1000, 256, 999)),
                                      (256, (256, 255, 0)),
                                      (2 * CHUNK + 1000, (2 * CHUNK + 1000, 2 * CHUNK, CHUNK,
-                                                         CHUNK - 1, CHUNK + 1))])
+                                                         CHUNK - 1, CHUNK + 1)),
+                                     (3 * TILE - 1, (3 * TILE - 1, TILE - 2, TILE - 1, TILE)),
+                                     (2 * TILE, (TILE - 1, TILE, TILE + 1)),
+                                     (2 * TILE + 1, (0, 1, 2 * TILE + 1)),
+                                     (1, (1, 0, 1))])
 def test_prefix_tables_edge_lanes(n, n_tok):
     """No token, tokens ending on a stride boundary of 256, every position
     a token, a lane not a multiple of 256, a lane of one stride; a lane of
-    three chunks with tokens ending on, before and after a chunk boundary."""
+    many tiles with tokens ending on, before and after a chunk boundary.
+    Tiles are aligned in the flat row index w (n + 1) + t + 1: with n + 1
+    a multiple of TILE (n = 3 TILE - 1) every lane starts a tile, else
+    (W = 3, n even and odd) the lanes' heads and tails cut tiles; tokens
+    ending on, before and after a tile's rows (the last row of tile 0 of
+    lane 0 is token TILE - 2), and lanes of one token."""
     rng = np.random.default_rng(n)
     W = len(n_tok)
     bucket = rng.integers(0, 18, (W, n))
     sym1 = rng.integers(0, 286, (W, n))
     sym2 = np.where(rng.random((W, n)) < 0.4, rng.integers(288, 318, (W, n)), 320)
-    _check_prefix(bucket, sym1, sym2, np.asarray(n_tok, np.int32))
+    stats = _check_prefix(bucket, sym1, sym2, np.asarray(n_tok, np.int32))
+    if n + 1 > TILE and (n + 1) % TILE:
+        assert stats["row_groups"] > 0  # a lane's head or tail stored row by row
+    if n >= TILE:
+        assert stats["line_groups"] > 0  # groups inside a tile stored as whole lines
 
 
 def test_split_points_with_prefix_model_equal_jax(monkeypatch):

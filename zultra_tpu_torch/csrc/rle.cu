@@ -5,16 +5,18 @@
 // Neither has a Pallas counterpart: they replace XLA programs of the JAX
 // package's planner. rle_sweep_kernel is optimize_for_rle_jax
 // (zultra_tpu/ops/entropy_jax.py:462-545, a lax.scan; reference
-// huffutils.c:34-114); rle_stats_kernel is rle_histogram and rle_bits
-// (entropy_jax.py:255 and :276, with _run_counts :202-252). Callers:
-// ops/rle_cuda.py, from entropy_torch.optimize_for_rle (twice a planner
-// call), _symbol_and_table_cost (every dynamic cost of the splitter and
-// the planner) and mask_histograms / mask_search (20 masks a launch).
+// huffutils.c:34-114); rle_stats_kernel is _concat_lengths (:568) followed
+// by rle_histogram and rle_bits (:255 and :276, with _run_counts
+// :202-252), which XLA fuses into one program. Callers: ops/rle_cuda.py,
+// from entropy_torch.optimize_for_rle (twice a planner call),
+// _symbol_and_table_cost (every dynamic cost of the splitter and the
+// planner: one mask a launch) and mask_histograms / mask_search (20 masks
+// a launch).
 //
 // What bounds them on the card: neither bytes nor arithmetic. A row is at
 // most 1,280 bytes; the sweep is a dependent chain of up to 321 steps, the
-// statistics a few dozen operations a run. On the path the launch and, for
-// the sweep, the one thread's chain are the call.
+// statistics a few dozen operations a run. On the path the launch, one
+// load's latency and, for the sweep, the one thread's chain are the call.
 //
 // What the design does about it:
 // - A warp a row, every row of the call in one launch (the plain form makes
@@ -29,10 +31,22 @@
 //   [i - stride, i), behind the cursor, so lane 0 only records the
 //   segments and the warp writes them after the sweep. It stops at eff: a
 //   step past eff changes nothing.
-// - The statistics: each run start computes its emission counts in closed
-//   form (the reference walks them), the warp sums them into 19 bins by
-//   shared atomics, or into one bit total by a warp reduction; adds wrap
-//   mod 2^32 as the plain form's int32 sums do.
+// - The statistics take the code lengths themselves (lit_len, off_len) and
+//   concatenate them in registers: n_lit and n_off by warp-wide max
+//   reductions, off moved into place by one shuffle a word. A lane's runs
+//   are found once for all its masks: the starts by ballot, each start's
+//   end from the next set bit of its word or the first start of the next
+//   nonzero word (one shuffle), the runs compacted in order into shared
+//   memory. One mask: a warp a lane, 32 runs a step, each run's counts in
+//   closed form (the reference walks them), the 19 bins packed three to a
+//   register and summed by seven warp reductions (equal symbols
+//   aggregated by __match_any_sync first where the packing could
+//   overflow, or for measurement), the bit size by one reduction with the
+//   CL lengths in registers, gathered by shuffle. Several masks:
+//   a block a lane, a thread a run, each run's counts under every class
+//   of masks that can differ for it (5 for a nonzero run, 4 for zeros),
+//   then each mask's row read from its two classes. Adds wrap mod 2^32 as
+//   the plain form's int32 sums do.
 // ops/rle_cuda.py holds plain models of both schedules.
 
 #include <cuda_runtime.h>
@@ -228,74 +242,303 @@ __device__ __forceinline__ RunCounts run_counts(int value, int r, int mask) {
   return rc;
 }
 
-// mode 0: out (M * B, 19) histograms; mode 1: out (M * B,) bit sizes under
-// te (M * B, 19). Row m * B + b is lane b under masks.m[m].
-__global__ void __launch_bounds__(ROWS * WARP)
-    rle_stats_kernel(const int32_t* __restrict__ lens, const int32_t* __restrict__ n_def,
-                     const int32_t* __restrict__ te, int32_t* __restrict__ out, int B, int L,
-                     int R, Masks masks, int mode) {
-  __shared__ int row_s[ROWS][MAX_L];
-  __shared__ unsigned start_s[ROWS][WORDS];
-  __shared__ int bins_s[ROWS][NCL];
-  const int warp = threadIdx.x / WARP;
-  const int lane = threadIdx.x % WARP;
-  const int r_id = blockIdx.x * ROWS + warp;
-  if (r_id >= R) return;  // the whole warp: no block-wide barrier below
-  const int b = r_id % B;
-  const int mask = masks.m[r_id / B];
-  const int nd = n_def[b];
-  const int n = min(nd, L);
-  int* row = row_s[warp];
-  int* bins = bins_s[warp];
-  const int32_t* g = lens + (size_t)b * L;
+// The C entry's arguments. A lane's row is lit[b, :n_lit] ++ off[b, :n_off]
+// with n_lit = max(last nonzero of lit[b] + 1, min_lit) and n_off likewise
+// (entropy_jax._concat_lengths :568, defined_count :307); the fused calls
+// pass lit_len (B, 288) and off_len (B, 32) with min_lit 257 and min_off 1.
+// Rows already concatenated pass lens as lit with min_lit = L_lit, no off
+// (L_off = min_off = 0) and n_def; with n_def null it is n_lit + n_off.
+struct StatsArgs {
+  const int32_t* lit;
+  const int32_t* off;
+  const int32_t* n_def;  // (B,) or null
+  const int32_t* te;     // (M * B, 19) CL code lengths (mode 1)
+  int32_t* out;          // mode 0: (M * B, 19) histograms; mode 1: (M * B,) bit sizes
+  int32_t* n_lit_out;    // (B,) or null
+  int32_t* n_off_out;    // (B,) or null
+  int L_lit, min_lit, L_off, min_off, B, M, mode;
+  Masks masks;
+};
 
-  int v[WORDS];
+// A run as find_runs stores it: (its length, its value clamped to 0..15, or
+// ZERO_RUN for a run of zeros).
+constexpr int ZERO_RUN = 16;
+
+// Lane b's runs into `runs` (in order of position), by one warp; returns
+// their number (and the lane's n_def in nd_out). Lane j holds positions j + 32 k. All of the row's loads
+// are issued before the first use: lit[i] and lit[i - 1], which give a
+// start without a shuffle, and off[j] (a shuffle moves it to position
+// n_lit + j, only in the words that reach n_lit). The start ballots are
+// the same in every lane, so each lane finds the first start past each
+// word itself; a start's end is the next set bit of its word or that.
+__device__ __forceinline__ int find_runs(const StatsArgs& a, int b, int lane, int2* runs,
+                                         int& nd_out) {
+  const int32_t* lit = a.lit + (size_t)b * a.L_lit;
+  int cur[WORDS], prev[WORDS];  // lit[i], lit[i - 1]
 #pragma unroll
   for (int k = 0; k < WORDS; ++k) {
     const int i = lane + WARP * k;
-    v[k] = i < L ? g[i] : 0;
-    row[i] = v[k];
+    cur[k] = i < a.L_lit ? lit[i] : 0;
+    prev[k] = i >= 1 && i <= a.L_lit ? lit[i - 1] : 0;
   }
-  if (lane < NCL) bins[lane] = mode == 0 ? 0 : te[(size_t)r_id * NCL + lane];
-  __syncwarp();
-  start_words(row, v, n, start_s[warp], lane);
-  const int n_words = (L + WARP - 1) / WARP;
+  const int ov = lane < a.L_off ? a.off[(size_t)b * a.L_off + lane] : 0;
+  const int nd_given = a.n_def ? a.n_def[b] : 0;
+  int last = 0;
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    if (cur[k] != 0) last = lane + WARP * k + 1;
+  }
+  const int n_lit = max(__reduce_max_sync(FULL, last), a.min_lit);
+  const int n_off = max(__reduce_max_sync(FULL, ov != 0 ? lane + 1 : 0), a.min_off);
+  const int nd = a.n_def ? nd_given : n_lit + n_off;
+  const int n = min(nd, n_lit + n_off);  // positions that can start a run
+  nd_out = nd;
+  if (lane == 0 && a.n_lit_out) {
+    a.n_lit_out[b] = n_lit;
+    a.n_off_out[b] = n_off;
+  }
 
-  int n16 = 0, n17 = 0, n18 = 0, bits = 0;
+  unsigned words[WORDS];
 #pragma unroll
   for (int k = 0; k < WORDS; ++k) {
     const int i = lane + WARP * k;
-    if (i < n && ((start_s[warp][k] >> lane) & 1u)) {
-      const int ns = next_start(start_s[warp], i, n_words);
-      const int end = ns < 0 ? nd : min(ns, nd);
-      const RunCounts rc = run_counts(v[k], max(end - i, 1), mask);
-      const int idx = min(max(rc.lit_v, 0), 15);
-      n16 = wrap_add(n16, rc.n16);
-      n17 = wrap_add(n17, rc.n17);
-      n18 = wrap_add(n18, rc.n18);
-      if (mode == 0) {
-        atomicAdd(&bins[idx], rc.lit_c);
-      } else {
-        bits = (int)((unsigned)bits + (unsigned)rc.lit_c * (unsigned)bins[idx]);
+    if (WARP * k + WARP > n_lit) {  // uniform: the word reaches the offsets
+      const int j = i - n_lit;      // position n_lit + j holds off[j]
+      const int o = __shfl_sync(FULL, ov, j & (WARP - 1));
+      const int o_prev = __shfl_sync(FULL, ov, (j - 1) & (WARP - 1));
+      if (j >= 0) {
+        cur[k] = j < n_off ? o : 0;
+        if (j > 0) prev[k] = o_prev;  // j == 0: lit[n_lit - 1]
       }
     }
+    words[k] = __ballot_sync(FULL, i < n && (i == 0 || cur[k] != prev[k]));
   }
-  n16 = (int)__reduce_add_sync(FULL, (unsigned)n16);
-  n17 = (int)__reduce_add_sync(FULL, (unsigned)n17);
-  n18 = (int)__reduce_add_sync(FULL, (unsigned)n18);
-  if (mode == 0) {
+  int after[WORDS];  // the first start past word k, or -1
+  int next = -1;
+#pragma unroll
+  for (int k = WORDS - 1; k >= 0; --k) {
+    after[k] = next;
+    if (words[k]) next = WARP * k + __ffs(words[k]) - 1;
+  }
+
+  int n_runs = 0;
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    const int i = lane + WARP * k;
+    if ((words[k] >> lane) & 1u) {
+      const unsigned rest = words[k] & ~((2u << lane) - 1u);  // starts above i in word k
+      const int e = rest ? WARP * k + __ffs(rest) - 1 : after[k];
+      const int end = e < 0 ? nd : min(e, nd);
+      const int value = cur[k];
+      const int sym = value == 0 ? ZERO_RUN : min(max(value, 0), 15);
+      runs[n_runs + __popc(words[k] & ((1u << lane) - 1u))] = make_int2(max(end - i, 1), sym);
+    }
+    n_runs += __popc(words[k]);
+  }
+  return n_runs;
+}
+
+// One run's counts under `mask` (run_counts), lit_v its CL symbol.
+__device__ __forceinline__ RunCounts counts_of(int2 run, int mask) {
+  const bool zero = run.y == ZERO_RUN;
+  RunCounts rc = run_counts(zero ? 0 : 1, run.x, mask);  // the counts see zero or not
+  rc.lit_v = zero ? 0 : run.y;
+  return rc;
+}
+
+// Lane b's row of one mask over its `n_runs` runs, lane j of the warp
+// taking runs j, j + 32, ...; te_lane is te[b][lane] for lane < 19 (mode
+// 1). Mode 0 sums the 19 bins packed three to a register in 10-bit fields,
+// one warp reduction a register: exact while the bins' total is below
+// 1024, and it is at most nd (every code it counts covers a position). A
+// lane with nd past that (rows already concatenated with a large n_def)
+// aggregates the lanes of equal symbol (__match_any_sync) into the warp's
+// shared bins instead. Mode 1: one bit total, the CL
+// lengths gathered by shuffle.
+constexpr int PACK_BITS = 10;
+constexpr int PACKED = (NCL + 2) / 3;  // registers of three bins
+
+__device__ __forceinline__ void stats_row(const StatsArgs& a, const int2* runs, int n_runs,
+                                          int nd, int b, int te_lane, int* bins, int lane) {
+  const int mask = a.masks.m[0];
+  const bool packed = nd < (1 << PACK_BITS);
+  unsigned acc[PACKED];
+#pragma unroll
+  for (int r = 0; r < PACKED; ++r) acc[r] = 0;
+  unsigned n16 = 0, n17 = 0, n18 = 0, bits = 0;
+  if (a.mode == 0 && !packed) {
+    if (lane < 16) bins[lane] = 0;
     __syncwarp();
-    if (lane < NCL) {
-      const int extra = lane == 16 ? n16 : lane == 17 ? n17 : lane == 18 ? n18 : 0;
-      out[(size_t)r_id * NCL + lane] = wrap_add(bins[lane], extra);
+  }
+  const unsigned t16 = (unsigned)__shfl_sync(FULL, te_lane, 16) + 2u;
+  const unsigned t17 = (unsigned)__shfl_sync(FULL, te_lane, 17) + 3u;
+  const unsigned t18 = (unsigned)__shfl_sync(FULL, te_lane, 18) + 7u;
+  for (int base = 0; base < n_runs; base += WARP) {  // uniform over the warp
+    const int j = base + lane;
+    RunCounts rc{0, 0, 0, 0, 0};
+    if (j < n_runs) rc = counts_of(runs[j], mask);
+    const int sym = rc.lit_v;
+    if (a.mode == 1) {
+      const unsigned t = (unsigned)__shfl_sync(FULL, te_lane, sym);
+      bits += (unsigned)rc.lit_c * t + (unsigned)rc.n16 * t16 + (unsigned)rc.n17 * t17 +
+              (unsigned)rc.n18 * t18;
+    } else if (packed) {
+      const int q = sym / 3;
+      const unsigned add = (unsigned)rc.lit_c << (PACK_BITS * (sym - 3 * q));
+#pragma unroll
+      for (int r = 0; r < 16 / 3 + 1; ++r) acc[r] += q == r ? add : 0u;  // symbols 0..15
+      acc[16 / 3] += ((unsigned)rc.n16 << PACK_BITS) + ((unsigned)rc.n17 << (2 * PACK_BITS));
+      acc[18 / 3] += (unsigned)rc.n18;
+    } else {
+      n16 += (unsigned)rc.n16;
+      n17 += (unsigned)rc.n17;
+      n18 += (unsigned)rc.n18;
+      const int key = j < n_runs ? sym : -1;
+      const unsigned group = __match_any_sync(FULL, key);
+      const unsigned sum = __reduce_add_sync(group, (unsigned)rc.lit_c);
+      if (key >= 0 && lane == __ffs(group) - 1) bins[sym] = wrap_add(bins[sym], (int)sum);
+      __syncwarp();  // the next step's leaders read these bins
+    }
+  }
+  if (a.mode == 1) {
+    bits = __reduce_add_sync(FULL, bits);
+    if (lane == 0) a.out[b] = (int)bits;
+    return;
+  }
+  unsigned mine = 0;  // lane j < 19: bin j
+  if (packed) {
+#pragma unroll
+    for (int r = 0; r < PACKED; ++r) {
+      const unsigned total = __reduce_add_sync(FULL, acc[r]);
+      if (lane / 3 == r) mine = (total >> (PACK_BITS * (lane % 3))) & ((1u << PACK_BITS) - 1u);
     }
   } else {
-    bits = (int)__reduce_add_sync(FULL, (unsigned)bits);
-    if (lane == 0) {
-      const unsigned t = (unsigned)n16 * (unsigned)(bins[16] + 2) +
-                         (unsigned)n17 * (unsigned)(bins[17] + 3) +
-                         (unsigned)n18 * (unsigned)(bins[18] + 7);
-      out[r_id] = (int)((unsigned)bits + t);
+    n16 = __reduce_add_sync(FULL, n16);
+    n17 = __reduce_add_sync(FULL, n17);
+    n18 = __reduce_add_sync(FULL, n18);
+    __syncwarp();
+    mine = lane < 16 ? (unsigned)bins[lane] : lane == 16 ? n16 : lane == 17 ? n17 : n18;
+  }
+  if (lane < NCL) a.out[(size_t)b * NCL + lane] = (int)mine;
+}
+
+// One mask (every dynamic cost): a warp a lane, LANE_ROWS lanes a block.
+// The warp finds the lane's runs into shared memory and takes them 32 a
+// step (stats_row). Output row b.
+constexpr int LANE_ROWS = 4;
+
+__global__ void __launch_bounds__(LANE_ROWS * WARP) rle_stats_kernel(const StatsArgs a) {
+  __shared__ int2 runs_s[LANE_ROWS][MAX_L];
+  __shared__ int bins_s[LANE_ROWS][16];
+  const int warp = threadIdx.x / WARP;
+  const int lane = threadIdx.x % WARP;
+  const int b = blockIdx.x * LANE_ROWS + warp;
+  if (b >= a.B) return;  // the whole warp: no block-wide barrier below
+  const int te_lane = a.mode == 1 && lane < NCL ? a.te[(size_t)b * NCL + lane] : 0;
+  int nd;
+  const int n_runs = find_runs(a, b, lane, runs_s[warp], nd);
+  __syncwarp();
+  stats_row(a, runs_s[warp], n_runs, nd, b, te_lane, bins_s[warp], lane);
+}
+
+// Several masks (the mask search): a block a lane. A run's counts depend on
+// the mask only through the bits its kind reads: a nonzero run through bits
+// 1, 8 and 16 (five classes: no bit 1, or bit 1 with each pair of bits 8
+// and 16), a run of zeros through bits 2 and 4 (four classes). Warp 0
+// finds the runs; the block's threads take the (class, run) pairs and add
+// each run's counts under each class of its kind (run_counts, the closed
+// form, once a pair) into shared sums: literal counts by class and CL
+// symbol, n16 by class, the zero runs' (count, n17, n18) by class. Then
+// warp w takes masks w, w +
+// MASK_WARPS, ...: lane j < 19 reads bin j of the mask's two classes; the
+// bit size is their dot product with the CL lengths (te rows loaded before
+// the first barrier), one reduction.
+constexpr int MASK_WARPS = MAX_L / WARP;
+constexpr int NZ_CLASSES = 5;
+constexpr int Z_CLASSES = 4;
+
+__device__ __forceinline__ int nonzero_class(int mask) {
+  return mask & 1 ? 1 + ((mask >> 3) & 1) + 2 * ((mask >> 4) & 1) : 0;
+}
+
+__device__ __forceinline__ int nonzero_class_mask(int c) {  // a mask of class c
+  return c == 0 ? 0 : 1 | ((c - 1) & 1 ? 8 : 0) | ((c - 1) & 2 ? 16 : 0);
+}
+
+__global__ void __launch_bounds__(MASK_WARPS * WARP) rle_stats_masks_kernel(const StatsArgs a) {
+  constexpr int PER_WARP = (MAX_MASKS + MASK_WARPS - 1) / MASK_WARPS;
+  constexpr int SUMS = NZ_CLASSES + 3 * Z_CLASSES;  // n16 by class; (count, n17, n18) by class
+  __shared__ int2 runs_s[MAX_L];
+  __shared__ int n_runs_s;
+  __shared__ int lit_s[NZ_CLASSES][16];
+  __shared__ int sums_s[SUMS];
+  const int tid = threadIdx.x;
+  const int warp = tid / WARP;
+  const int lane = tid % WARP;
+  const int b = blockIdx.x;
+
+  int te_r[PER_WARP];
+#pragma unroll
+  for (int i = 0; i < PER_WARP; ++i) {
+    const int m = warp + i * MASK_WARPS;
+    te_r[i] = a.mode == 1 && m < a.M && lane < NCL ? a.te[((size_t)m * a.B + b) * NCL + lane]
+                                                    : 0;
+  }
+  for (int i = tid; i < NZ_CLASSES * 16 + SUMS; i += MASK_WARPS * WARP) {
+    if (i < NZ_CLASSES * 16) {
+      lit_s[i / 16][i % 16] = 0;
+    } else {
+      sums_s[i - NZ_CLASSES * 16] = 0;
+    }
+  }
+  if (warp == 0) {
+    int nd;
+    const int n_runs = find_runs(a, b, lane, runs_s, nd);
+    if (lane == 0) n_runs_s = n_runs;
+  }
+  __syncthreads();
+
+  // (class, run) pairs over the block's threads, class-major; shared adds.
+  const int n_runs = n_runs_s;
+  for (int p = tid; p < NZ_CLASSES * n_runs; p += MASK_WARPS * WARP) {
+    const int c = p / n_runs;
+    const int2 run = runs_s[p - c * n_runs];
+    if (run.y == ZERO_RUN) {
+      if (c < Z_CLASSES) {
+        const RunCounts rc = run_counts(0, run.x, c << 1);
+        int* z = sums_s + NZ_CLASSES + 3 * c;
+        if (rc.lit_c) atomicAdd(z, rc.lit_c);
+        if (rc.n17) atomicAdd(z + 1, rc.n17);
+        if (rc.n18) atomicAdd(z + 2, rc.n18);
+      }
+    } else {
+      const RunCounts rc = run_counts(1, run.x, nonzero_class_mask(c));
+      atomicAdd(&lit_s[c][run.y], rc.lit_c);
+      if (rc.n16) atomicAdd(&sums_s[c], rc.n16);
+    }
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < PER_WARP; ++i) {
+    const int m = warp + i * MASK_WARPS;
+    if (m >= a.M) break;  // uniform over the warp
+    const int mask = a.masks.m[m];
+    const int nc = nonzero_class(mask);
+    const int zc = NZ_CLASSES + 3 * ((mask >> 1) & 3);
+    unsigned v = 0;  // lane j < 19: bin j
+    if (lane < 16) {
+      v = (unsigned)lit_s[nc][lane] + (lane == 0 ? (unsigned)sums_s[zc] : 0u);
+    } else if (lane < NCL) {
+      v = (unsigned)(lane == 16 ? sums_s[nc] : sums_s[zc + lane - 16]);
+    }
+    const int row = m * a.B + b;
+    if (a.mode == 0) {
+      if (lane < NCL) a.out[(size_t)row * NCL + lane] = (int)v;
+    } else {
+      const unsigned t = (unsigned)te_r[i] + (lane == 16 ? 2u : lane == 17 ? 3u : lane == 18 ? 7u : 0u);
+      const unsigned bits = __reduce_add_sync(FULL, lane < NCL ? v * t : 0u);
+      if (lane == 0) a.out[row] = (int)bits;
     }
   }
 }
@@ -311,19 +554,28 @@ extern "C" int zt_rle_sweep(const void* counts, void* out, int B, int L, void* s
   return (int)cudaGetLastError();
 }
 
-extern "C" int zt_rle_stats(const void* lens, const void* n_def, const void* te, void* out,
-                            int B, int L, const int* masks, int M, int mode, void* stream) {
-  if (L < 1 || L > MAX_L || B < 0 || M < 1 || M > MAX_MASKS || (mode != 0 && mode != 1) ||
-      (mode == 1 && te == nullptr)) {
+extern "C" int zt_rle_stats(const void* lit, const void* off, const void* n_def, const void* te,
+                            void* out, void* n_lit_out, void* n_off_out, int L_lit, int min_lit,
+                            int L_off, int min_off, int B, const int* masks, int M, int mode,
+                            void* stream) {
+  if (L_lit < 1 || L_off < 0 || L_off > WARP || L_lit + L_off > MAX_L || min_lit < 0 ||
+      min_lit > L_lit || min_off < 0 || min_off > L_off ||
+      B < 0 || M < 1 || M > MAX_MASKS || (mode != 0 && mode != 1) ||
+      (mode == 1 && te == nullptr) || ((n_lit_out == nullptr) != (n_off_out == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
-  Masks mk{};
-  for (int i = 0; i < M; ++i) mk.m[i] = masks[i];
-  const long long R = (long long)M * B;
-  if (R > 0) {
-    rle_stats_kernel<<<(unsigned)((R + ROWS - 1) / ROWS), ROWS * WARP, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)lens, (const int32_t*)n_def, (const int32_t*)te, (int32_t*)out, B, L,
-        (int)R, mk, mode);
+  StatsArgs a{(const int32_t*)lit, (const int32_t*)off, (const int32_t*)n_def,
+              (const int32_t*)te, (int32_t*)out, (int32_t*)n_lit_out, (int32_t*)n_off_out,
+              L_lit, min_lit, L_off, min_off, B, M, mode, {}};
+  for (int i = 0; i < M; ++i) a.masks.m[i] = masks[i];
+  if (B > 0) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (M > 1) {
+      rle_stats_masks_kernel<<<(unsigned)B, MASK_WARPS * WARP, 0, st>>>(a);
+    } else {
+      rle_stats_kernel<<<(unsigned)((B + LANE_ROWS - 1) / LANE_ROWS), LANE_ROWS * WARP, 0, st>>>(
+          a);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,8 @@ the batch a lane, and the (key, index) sorts through the ``lex_order``
 kernel of ``plan_cuda``; MK phase 3's closed form and the scatters back
 to symbol order are tensor ops around them. The Zopfli rewrite's
 decision sweep and the RLE statistics (every mask of the CL-mask search
-in one launch a mode) go through the kernels of ``rle_cuda``. Reference
+in one launch a mode, the concatenation of the code lengths in the
+kernel) go through the kernels of ``rle_cuda``. Reference
 semantics:
 zultra src/huffman/huffencoder.c:157-346 and :446-735,
 src/blockdeflate.c:538-618. Every tie-break (sort by (weight, symbol),
@@ -22,10 +23,18 @@ from __future__ import annotations
 
 import torch
 
-from ..constants import NCODELENSYMS, NLITERALSYMS, NOFFSETSYMS
+from ..constants import NCODELENSYMS
 
 from . import mk_cuda, plan_cuda
-from .rle_cuda import optimize_for_rle, rle_bits_masks, rle_histogram_masks  # noqa: F401
+from .rle_cuda import (  # noqa: F401
+    concat_lengths as _concat_lengths,
+    defined_count,
+    optimize_for_rle,
+    rle_bits_masks,
+    rle_bits_tables,
+    rle_histogram_masks,
+    rle_histogram_tables,
+)
 from .tables import MASK_ORDER, device_tables
 
 INF32 = 2**30
@@ -226,13 +235,6 @@ def raw_table_size(te_lens: torch.Tensor) -> torch.Tensor:
     return torch.clamp(last, min=4)
 
 
-def defined_count(lens: torch.Tensor, min_symbols: int) -> torch.Tensor:
-    S = lens.shape[1]
-    posp1 = _arange(S, lens.device)[None, :] + 1
-    last = torch.where(lens != 0, posp1, 0).max(dim=1)[0]
-    return torch.clamp(last, min=min_symbols)
-
-
 # ---------------------------------------------------------------------------
 # Block cost estimators and the CL-mask search
 # ---------------------------------------------------------------------------
@@ -247,32 +249,15 @@ def static_cost(lit_hist: torch.Tensor, off_hist: torch.Tensor) -> torch.Tensor:
     return cost + 3
 
 
-def _concat_lengths(lit_len: torch.Tensor, off_len: torch.Tensor):
-    """concat(lit_len[:n_lit], off_len[:n_off]) as fixed (B, 320) + n_def."""
-    n_lit = defined_count(lit_len, 257)
-    n_off = defined_count(off_len, 1)
-    L = NLITERALSYMS + NOFFSETSYMS
-    j = _arange(L, lit_len.device)[None, :]
-    from_off = j >= n_lit[:, None]
-    oidx = torch.clamp(j - n_lit[:, None], 0, NOFFSETSYMS - 1)
-    lens = torch.where(
-        from_off,
-        torch.gather(off_len, 1, oidx.to(I64)),
-        torch.gather(lit_len, 1, torch.clamp(j, 0, NLITERALSYMS - 1).to(I64).expand(lit_len.shape[0], L)),
-    )
-    return lens, n_lit, n_off, n_lit + n_off
-
-
 def _symbol_and_table_cost(lit_hist, off_hist, lit_len, off_len):
     t = device_tables(lit_hist.device)
     lit_counted = torch.where(t.lit_counted, lit_hist, 0)
     cost = (lit_counted * (lit_len + t.lit_extra)).sum(dim=1, dtype=I32)
     cost = cost + (off_hist * (off_len + t.off_extra)).sum(dim=1, dtype=I32)
-    lens, _, _, n_def = _concat_lengths(lit_len, off_len)
-    te_len = mk_lengths(rle_histogram_masks(lens, n_def, (7,))).contiguous()
+    te_len = mk_lengths(rle_histogram_tables(lit_len, off_len, (7,))[0]).contiguous()
     cost = cost + 5 + 5 + 4
     cost = cost + 3 * raw_table_size(te_len)
-    cost = cost + rle_bits_masks(lens, n_def, te_len, (31,))
+    cost = cost + rle_bits_tables(lit_len, off_len, te_len, (31,))
     return cost + 3
 
 
@@ -289,12 +274,10 @@ def dynamic_cost(lit_hist: torch.Tensor, off_hist: torch.Tensor) -> torch.Tensor
 
 
 def mask_histograms(lit_len: torch.Tensor, off_len: torch.Tensor):
-    """The CL histograms of every mask in MASK_ORDER, stacked mask-major
-    into one (len(MASK_ORDER) * B, 19) batch, with the concatenated
-    lengths (B, 320) and n_lit, n_off, n_def (B,)."""
-    lens, n_lit, n_off, n_def = _concat_lengths(lit_len, off_len)
-    hists = rle_histogram_masks(lens, n_def, MASK_ORDER)
-    return hists, lens, n_lit, n_off, n_def
+    """The CL histograms of every mask in MASK_ORDER of each lane's
+    concatenated lengths, stacked mask-major into one
+    (len(MASK_ORDER) * B, 19) batch, with n_lit, n_off (B,)."""
+    return rle_histogram_tables(lit_len, off_len, MASK_ORDER)
 
 
 def mask_search(lit_len: torch.Tensor, off_len: torch.Tensor):
@@ -303,10 +286,10 @@ def mask_search(lit_len: torch.Tensor, off_len: torch.Tensor):
     built in one stacked batch. Returns (best_mask (B,), cl_len (B, 19),
     n_lit, n_off)."""
     B = lit_len.shape[0]
-    hists, lens, n_lit, n_off, n_def = mask_histograms(lit_len, off_len)
+    hists, n_lit, n_off = mask_histograms(lit_len, off_len)
     cl_flat = limited_lengths(mk_lengths(hists), 7).contiguous()
     cl_m = cl_flat.view(len(MASK_ORDER), B, NCODELENSYMS)
-    cost_m = rle_bits_masks(lens, n_def, cl_flat, MASK_ORDER).view(len(MASK_ORDER), B).T
+    cost_m = rle_bits_tables(lit_len, off_len, cl_flat, MASK_ORDER).view(len(MASK_ORDER), B).T
     best = cost_m.min(dim=1)[0]
     mi = _arange(len(MASK_ORDER), lit_len.device)[None, :]
     midx = torch.where(cost_m == best[:, None], mi, -1).max(dim=1)[0]

@@ -13,13 +13,17 @@ drop bin NBINS, split_jax.py:190-191). The JAX package builds both with
 plain form here is the same construction in torch (a one-hot of (W, n,
 18) and two outer-dimension cumsums).
 
-The kernel makes two launches a call, chunked by SPC = 128 strides of 256
-tokens (32768 tokens a chunk): ``count`` writes each stride's histogram
-as its row of P256 and each chunk's 18 bucket and 320 symbol counts to a
-scratch row; ``write`` sums the scratch rows before its chunk, scans its
-rows of P256 in place, and walks its tokens a warp at a time (32 * SPC
-tokens a warp, 8 warps a chunk), lane k writing bucket k's running count
-to every row of P18. ``prefix_tables_model`` is that schedule in numpy.
+The kernel makes three launches a call over tiles of TILE rows of P18,
+aligned to TILE in the table's flat row index w (n + 1) + t + 1 (a lane's
+first and last tile cut at its ends): ``count`` sums each tile's bucket
+and symbol counts of its tokens below n_tok into a scratch row; ``scan``
+turns a lane's scratch rows into exclusive sums in place and writes the
+lane's totals after them; ``write`` takes a tile's offsets, writes its
+rows of P256 (a row a stride that ends in the tile) and, a warp a run of
+256 rows, each group of 32 rows of P18 computed in parallel (the warps'
+bucket counts first, then base_k + popc(ballot(bucket == k) &
+lanemask_le)), staged in shared memory and stored over whole lines.
+``prefix_tables_model`` is that schedule in numpy.
 """
 
 from __future__ import annotations
@@ -33,18 +37,27 @@ from . import count_launch
 
 NBINS = NLITERALSYMS + NOFFSETSYMS  # 320 combined symbol bins
 NB = 18  # drift buckets
+COLS = NB + NBINS  # a scratch row: a tile's bucket and symbol counts
 STRIDE = 256  # tokens a row of P256 advances
-WARPS = 8  # warps a block of the write launch (csrc/prefix.cu THREADS / 32)
-SPC = 128  # strides a chunk
+TILE = 2048  # rows of P18 a tile (csrc/prefix.cu)
+WARPS = 8  # warps a block of the write launch
+GROUP = 32  # rows a warp computes and stores at once
 I32 = torch.int32
 I64 = torch.int64
-MODEL_COUNTERS = ("chunks", "strides", "warps", "tokens_counted", "p18_rows", "p256_rows")
+MODEL_COUNTERS = ("tiles", "valid_tiles", "tokens_counted", "line_groups", "row_groups",
+                  "constant_groups", "p18_rows", "p256_rows")
+
+
+def tiles_per_lane(n: int) -> int:
+    """Tiles a lane of n tokens touches at most (the grid's width)."""
+    return -(-(n + 1) // TILE) + 1
 
 
 def prefix_tables(bucket_t: torch.Tensor, sym1_t: torch.Tensor, sym2_t: torch.Tensor,
                   n_tok: torch.Tensor):
     """(P18 (W, n + 1, 18), P256 (W, n // 256 + 2, 320)) int32. A CPU
-    tensor takes the plain form; a CUDA tensor one call of two launches."""
+    tensor takes the plain form; a CUDA tensor one call of three launches
+    (count, scan, write)."""
     if bucket_t.device.type == "cpu":
         return prefix_tables_plain(bucket_t, sym1_t, sym2_t, n_tok)
     for name, t in (("bucket_t", bucket_t), ("sym1_t", sym1_t), ("sym2_t", sym2_t)):
@@ -57,14 +70,13 @@ def prefix_tables(bucket_t: torch.Tensor, sym1_t: torch.Tensor, sym2_t: torch.Te
         raise ValueError(f"prefix_tables: lanes of {n} tokens, the kernel takes 1..2^30 - 1")
     dev = bucket_t.device
     n_q = n // STRIDE + 2
-    nc = -(-(n_q - 1) // SPC)
     P18 = torch.empty((W, n + 1, NB), dtype=I32, device=dev)
     P256 = torch.empty((W, n_q, NBINS), dtype=I32, device=dev)
-    scratch = torch.empty((W, nc, NB + NBINS), dtype=I32, device=dev)
+    scratch = torch.empty((W, tiles_per_lane(n) + 1, COLS), dtype=I32, device=dev)
     if W:
         _build.launch("zt_prefix_tables", bucket_t.data_ptr(), sym1_t.data_ptr(),
                       sym2_t.data_ptr(), n_tok.data_ptr(), P18.data_ptr(), P256.data_ptr(),
-                      scratch.data_ptr(), W, n, SPC)
+                      scratch.data_ptr(), W, n)
         count_launch("prefix_tables")
     return P18, P256
 
@@ -105,85 +117,115 @@ def _bins(x: np.ndarray, k: int) -> np.ndarray:
     return np.bincount(x, minlength=k).astype(np.int64)
 
 
+def _tile(w: int, x: int, n: int):
+    """Tile x of lane w as ``tile_of`` cuts it: (frame, r0, r1, a, b),
+    flat rows [r0, r1), tokens [a, b), frame the TILE-aligned row its
+    warps count from."""
+    L0 = w * (n + 1)
+    frame = (L0 // TILE + x) * TILE
+    r0, r1 = max(L0, frame), min(L0 + n + 1, frame + TILE)
+    return frame, r0, r1, r0 - L0 - 1, r1 - L0 - 1
+
+
+def _valid_tiles(w: int, n: int, nt: int) -> int:
+    """Tiles 0.. of lane w that hold a token below nt."""
+    L0 = w * (n + 1)
+    return (L0 + nt) // TILE - L0 // TILE + 1 if nt > 0 else 0
+
+
 def prefix_tables_model(bucket_t, sym1_t, sym2_t, n_tok):
     """The kernels' schedule on CPU tensors -> (P18, P256, {counter: count}
-    over ``MODEL_COUNTERS``). The count launch: each (lane, chunk of SPC
-    strides) writes its strides' histograms as raw rows of P256
-    and its chunk totals to scratch. The write launch: each (lane, chunk)
-    takes its offsets from the scratch rows before it, scans its raw rows
-    of P256, and each of its 8 warps counts its 32 * SPC tokens, adds the
-    warps before it and writes its rows of P18 in order. Asserts that
-    every row of both tables is written exactly once (P256's raw rows
-    once more, by the scan) and that the scan sees raw rows only."""
+    over ``MODEL_COUNTERS``). count: each tile that holds a token below
+    n_tok sums its tokens' bucket and symbol counts into its scratch row.
+    scan: a lane's scratch rows become exclusive sums, its totals the row
+    after the last tile. write: each tile takes its offsets (a tile past
+    n_tok the totals), writes the P256 rows whose stride ends in it (the
+    lane's last tile up to n_q - 1) as running sums of its symbols by
+    stride, and, a warp a run of 256 flat rows, the warp's bucket counts,
+    the warps before it, then each group of 32 rows: staged unless the
+    stage already holds the constant row of a group with no token, stored
+    as whole lines when the group lies inside the tile, else row by row.
+    Asserts that every row of both tables is written exactly once."""
     bucket = bucket_t.numpy()
     s1 = sym1_t.numpy()
     s2 = sym2_t.numpy()
     W, n = bucket.shape
     n_q = n // STRIDE + 2
-    n_strides = n_q - 1
-    nc = -(-n_strides // SPC)
-    P18 = np.zeros((W, n + 1, NB), np.int64)
+    NX = tiles_per_lane(n)
+    P18 = np.zeros((W * (n + 1), NB), np.int64)
     P256 = np.zeros((W, n_q, NBINS), np.int64)
-    scratch = np.zeros((W, nc, NB + NBINS), np.int64)
-    p18_done = np.zeros((W, n + 1), np.int64)
-    p256_raw = np.zeros((W, n_q), np.int64)
+    scratch = np.zeros((W, NX + 1, COLS), np.int64)
+    p18_done = np.zeros(W * (n + 1), np.int64)
     p256_done = np.zeros((W, n_q), np.int64)
     stats = dict.fromkeys(MODEL_COUNTERS, 0)
+    nts = [max(min(int(v), n), 0) for v in n_tok]
 
-    for w in range(W):  # the count launch
-        nt = max(min(int(n_tok[w]), n), 0)
-        for j in range(nc):
-            stats["chunks"] += 1
-            c18 = np.zeros(NB, np.int64)
-            tot = np.zeros(NBINS, np.int64)
-            for q in range(j * SPC, min((j + 1) * SPC, n_strides)):
-                stats["strides"] += 1
-                lo, hi = q * STRIDE, min(q * STRIDE + STRIDE, nt)
-                hist = _bins(s1[w, lo:hi], NBINS) + _bins(s2[w, lo:hi], NBINS)
-                P256[w, q + 1] = hist
-                p256_raw[w, q + 1] += 1
-                tot += hist
-                c18 += _bins(bucket[w, lo:hi], NB)
-            scratch[w, j] = np.concatenate([c18, tot])
+    for w in range(W):  # count
+        for x in range(_valid_tiles(w, n, nts[w])):
+            _, r0, r1, a, b = _tile(w, x, n)
+            assert r0 < r1
+            lo, hi = max(a, 0), min(b, nts[w])
+            stats["tokens_counted"] += max(hi - lo, 0)
+            scratch[w, x] = np.concatenate([_bins(bucket[w, lo:hi], NB),
+                                            _bins(s1[w, lo:hi], NBINS) + _bins(s2[w, lo:hi], NBINS)])
+    for w in range(W):  # scan
+        v = _valid_tiles(w, n, nts[w])
+        sums = np.cumsum(scratch[w, :v], axis=0)
+        scratch[w, NX] = sums[-1] if v else 0
+        scratch[w, :v] = sums - scratch[w, :v]
 
-    for w in range(W):  # the write launch
-        nt = max(min(int(n_tok[w]), n), 0)
-        for j in range(nc):
-            base = scratch[w, :j].sum(axis=0)
-            if j == 0:
-                P256[w, 0] = 0
-                p256_done[w, 0] += 1
-            acc = base[NB:].copy()
-            for q in range(j * SPC, min((j + 1) * SPC, n_strides)):
-                assert p256_raw[w, q + 1] == 1 and p256_done[w, q + 1] == 0
-                acc += P256[w, q + 1]
-                P256[w, q + 1] = acc
-                p256_done[w, q + 1] += 1
-            per_warp = 32 * SPC
-            spans = []
+    for w in range(W):  # write
+        nt = nts[w]
+        L0 = w * (n + 1)
+        v = _valid_tiles(w, n, nt)
+        for x in range(NX):
+            frame, r0, r1, a, b = _tile(w, x, n)
+            if r0 >= r1:
+                continue
+            stats["tiles"] += 1
+            stats["valid_tiles"] += x < v
+            base = scratch[w, x if x < v else NX]
+            lo, hi = max(a, 0), min(b, nt)
+            rho0 = -(-(a + 1) // STRIDE)
+            rho1 = n_q if b == n else -(-(b + 1) // STRIDE)
+            hist = np.zeros((rho1 - rho0, NBINS), np.int64)
+            tok = np.arange(lo, max(hi, lo))
+            r = np.maximum(tok // STRIDE + 1 - rho0, 0)  # the first row that counts t
+            for sym in (s1[w, tok], s2[w, tok]):
+                keep = (r < rho1 - rho0) & (sym >= 0) & (sym < NBINS)
+                np.add.at(hist, (r[keep], sym[keep]), 1)
+            P256[w, rho0:rho1] = base[NB:] + np.cumsum(hist, axis=0)
+            p256_done[w, rho0:rho1] += 1
+            rows = np.arange(frame, frame + TILE)
+            t = rows - L0 - 1
+            b_rows = np.where((rows >= r0) & (rows < r1) & (t >= 0) & (t < nt),
+                              bucket[w, np.clip(t, 0, n - 1)], -1)
+            onehot = (b_rows[:, None] == np.arange(NB)[None, :]).astype(np.int64)
+            per_warp = TILE // WARPS
+            warp_counts = onehot.reshape(WARPS, per_warp, NB).sum(axis=1)
             for warp in range(WARPS):
-                t0 = j * SPC * STRIDE + warp * per_warp
-                t1 = min(t0 + per_warp, n)
-                tv = min(t1, nt)
-                spans.append((t0, t1, _bins(bucket[w, t0:max(tv, t0)], NB)))
-                stats["tokens_counted"] += max(tv - t0, 0)
-            if j == 0:
-                P18[w, 0] = 0
-                p18_done[w, 0] += 1
-            for warp, (t0, t1, _) in enumerate(spans):
-                stats["warps"] += 1
-                if t1 <= t0:
-                    continue
-                run = base[:NB] + sum(sp[2] for sp in spans[:warp])
-                b = bucket[w, t0:t1].astype(np.int64)
-                b = np.where(np.arange(t0, t1) < nt, b, -1)
-                onehot = (b[:, None] == np.arange(NB)[None, :]).astype(np.int64)
-                P18[w, t0 + 1:t1 + 1] = run + np.cumsum(onehot, axis=0)
-                p18_done[w, t0 + 1:t1 + 1] += 1
+                run = base[:NB] + warp_counts[:warp].sum(axis=0)
+                constant = False
+                for g in range(warp * per_warp, (warp + 1) * per_warp, GROUP):
+                    G = frame + g
+                    if G + GROUP <= r0 or G >= r1:
+                        continue
+                    any_token = bool((b_rows[g:g + GROUP] >= 0).any())
+                    if any_token or not constant:
+                        stage = run + np.cumsum(onehot[g:g + GROUP], axis=0)
+                        run = stage[-1]
+                        constant = not any_token
+                    else:
+                        stats["constant_groups"] += 1
+                    at = np.arange(G, G + GROUP)
+                    keep = (at >= r0) & (at < r1)
+                    stats["line_groups" if keep.all() else "row_groups"] += 1
+                    P18[at[keep]] = stage[keep]
+                    p18_done[at[keep]] += 1
     assert (p18_done == 1).all() and (p256_done == 1).all()
     stats["p18_rows"] = int(p18_done.sum())
     stats["p256_rows"] = int(p256_done.sum())
-    return _as_i32(P18), _as_i32(P256), stats
+    return _as_i32(P18.reshape(W, n + 1, NB)), _as_i32(P256), stats
 
 
 def _as_i32(x: np.ndarray) -> torch.Tensor:

@@ -16,10 +16,18 @@ the warp writes the decided segments.
 histogram (entropy_jax.rle_histogram, :255) and the bit size
 (entropy_jax.rle_bits, :276) of each lane's concatenated lengths under
 several CL masks at once, mask-major: row m * B + b is lane b under
-masks[m]. The ``rle_stats`` kernel runs a warp per row in either mode:
-the run starts by ballot, each start's emission counts in closed form
-(entropy_jax._run_counts, :202-252), a warp sum into 19 bins or one bit
-total. One launch covers all of a call's masks.
+masks[m]. ``rle_histogram_tables`` and ``rle_bits_tables`` take the code
+lengths themselves (lit_len, off_len) and concatenate them as
+entropy_jax._concat_lengths (:568) does, in the kernel (the histograms
+also give n_lit, n_off); on the CPU ``concat_lengths`` does it first. The
+``rle_stats`` kernel finds a lane's runs once for all its masks (run
+starts by ballot, each run's end from the next start), then with one
+mask a warp takes the lane's runs 32 a step, each start's emission counts
+in closed form (entropy_jax._run_counts, :202-252), the bins summed by
+warp reductions; with several masks a block takes the lane, a thread a
+run, and sums each run's counts under every class of masks that can
+differ for it, each mask's row read from its classes. One launch covers
+all of a call's masks.
 
 Why the sweep's schedule is exact: every step reads the original counts
 (``c``, ``good``, ``limit4`` are functions of the input row alone), and a
@@ -35,7 +43,7 @@ import ctypes
 
 import torch
 
-from ..constants import NCODELENSYMS
+from ..constants import NCODELENSYMS, NLITERALSYMS, NOFFSETSYMS
 from .. import _build
 from . import count_launch
 
@@ -46,7 +54,13 @@ MAX_L = 320  # the kernels' rows: 288 literal/length + 32 offset lengths
 MAX_MASKS = 32  # masks a rle_stats launch takes by value
 WARP = 32
 SWEEP_COUNTERS = ("rows", "steps", "boundaries", "segments", "rewritten")
-STATS_COUNTERS = ("rows", "runs", "words")
+STATS_COUNTERS = ("lanes", "runs", "rows", "steps", "packed_rows", "group_adds",
+                  "class_counts")
+# One mask's histograms sum their 19 bins packed three to a register in
+# PACK_BITS-bit fields, a warp reduction a register, where n_def < 2^PACK_BITS
+# (the bins' total is at most n_def), else by aggregating equal symbols with
+# __match_any_sync.
+PACK_BITS = 10
 
 
 def _arange(n, dev, dtype=I32):
@@ -233,25 +247,78 @@ def rle_sweep_model(counts: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def _check_stats(lens: torch.Tensor, n_def: torch.Tensor, masks) -> None:
+def defined_count(lens: torch.Tensor, min_symbols: int) -> torch.Tensor:
+    """(B,) the last nonzero entry's position + 1 of each row, at least
+    min_symbols (entropy_jax.defined_count, :307)."""
+    S = lens.shape[1]
+    posp1 = _arange(S, lens.device)[None, :] + 1
+    last = torch.where(lens != 0, posp1, 0).max(dim=1)[0]
+    return torch.clamp(last, min=min_symbols)
+
+
+def concat_lengths(lit_len: torch.Tensor, off_len: torch.Tensor):
+    """concat(lit_len[:n_lit], off_len[:n_off]) as fixed (B, 320) + n_lit,
+    n_off, n_def (entropy_jax._concat_lengths, :568): the plain front of
+    the fused statistics, which the kernel does in registers."""
+    n_lit = defined_count(lit_len, 257)
+    n_off = defined_count(off_len, 1)
+    L = NLITERALSYMS + NOFFSETSYMS
+    j = _arange(L, lit_len.device)[None, :]
+    from_off = j >= n_lit[:, None]
+    oidx = torch.clamp(j - n_lit[:, None], 0, NOFFSETSYMS - 1)
+    lens = torch.where(
+        from_off,
+        torch.gather(off_len, 1, oidx.to(I64)),
+        torch.gather(lit_len, 1, torch.clamp(j, 0, NLITERALSYMS - 1).to(I64).expand(lit_len.shape[0], L)),
+    )
+    return lens, n_lit, n_off, n_lit + n_off
+
+
+def _check_masks(masks) -> tuple:
+    masks = tuple(int(m) for m in masks)
+    if not 1 <= len(masks) <= MAX_MASKS or any(not 0 <= m < 32 for m in masks):
+        raise ValueError(f"rle_stats: 1..{MAX_MASKS} masks in 0..31, got {list(masks)}")
+    return masks
+
+
+def _check_te(te_lens: torch.Tensor, rows: int) -> None:
+    if te_lens.shape != (rows, NCODELENSYMS):
+        raise ValueError(f"rle_stats: te_lens of shape {tuple(te_lens.shape)}, expected "
+                         f"({rows}, {NCODELENSYMS})")
+
+
+def _launch_stats(lit, off, n_def, masks, te, out, n_lit, n_off, min_lit: int,
+                  min_off: int) -> None:
+    """One ``rle_stats`` launch: rows lit[b, :n_lit] ++ off[b, :n_off]
+    (the C entry's arguments; ``off`` None and ``n_def`` given for rows
+    already concatenated)."""
+    B, L_lit = lit.shape
+    L_off = 0 if off is None else off.shape[1]
+    if B:
+        arr = (ctypes.c_int * len(masks))(*masks)
+        ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+        _build.launch("zt_rle_stats", lit.data_ptr(), ptr(off), ptr(n_def), ptr(te),
+                      out.data_ptr(), ptr(n_lit), ptr(n_off), L_lit, min_lit, L_off, min_off,
+                      B, ctypes.addressof(arr), len(masks), 0 if te is None else 1)
+        count_launch("rle_stats")
+
+
+def _check_rows(lens: torch.Tensor, n_def: torch.Tensor) -> None:
     _build.check_cuda("rle_stats lens", lens, I32, 2)
     _build.check_cuda("rle_stats n_def", n_def, I32, 1)
     if n_def.shape[0] != lens.shape[0]:
         raise ValueError("rle_stats: n_def must have one entry per lane")
     if not 1 <= lens.shape[1] <= MAX_L:
         raise ValueError(f"rle_stats: rows of {lens.shape[1]} lengths, the kernel takes 1..{MAX_L}")
-    if not 1 <= len(masks) <= MAX_MASKS or any(not 0 <= m < 32 for m in masks):
-        raise ValueError(f"rle_stats: 1..{MAX_MASKS} masks in 0..31, got {list(masks)}")
 
 
-def _launch_stats(lens, n_def, masks, te, out, mode: int) -> None:
-    B, L = lens.shape
-    if B:
-        arr = (ctypes.c_int * len(masks))(*masks)
-        _build.launch("zt_rle_stats", lens.data_ptr(), n_def.data_ptr(),
-                      0 if te is None else te.data_ptr(), out.data_ptr(), B, L,
-                      ctypes.addressof(arr), len(masks), mode)
-        count_launch("rle_stats")
+def _check_tables(lit_len: torch.Tensor, off_len: torch.Tensor) -> None:
+    _build.check_cuda("rle_stats lit_len", lit_len, I32, 2)
+    _build.check_cuda("rle_stats off_len", off_len, I32, 2)
+    if lit_len.shape != (off_len.shape[0], NLITERALSYMS) or off_len.shape[1] != NOFFSETSYMS:
+        raise ValueError(f"rle_stats: lit_len {tuple(lit_len.shape)} and off_len "
+                         f"{tuple(off_len.shape)}, expected (B, {NLITERALSYMS}) and "
+                         f"(B, {NOFFSETSYMS})")
 
 
 def rle_histogram_masks(lens: torch.Tensor, n_def: torch.Tensor, masks) -> torch.Tensor:
@@ -259,12 +326,12 @@ def rle_histogram_masks(lens: torch.Tensor, n_def: torch.Tensor, masks) -> torch
     CL masks -> (M * B, 19) int32 CL-symbol histograms of the RLE walk
     over each lane's first n_def lengths, mask-major. A CUDA tensor takes
     one ``rle_stats`` launch (histogram mode)."""
-    masks = tuple(int(m) for m in masks)
+    masks = _check_masks(masks)
     if lens.device.type == "cpu":
         return torch.cat([rle_histogram_plain(lens, n_def, m) for m in masks])
-    _check_stats(lens, n_def, masks)
+    _check_rows(lens, n_def)
     out = torch.empty((len(masks) * lens.shape[0], NCODELENSYMS), dtype=I32, device=lens.device)
-    _launch_stats(lens, n_def, masks, None, out, 0)
+    _launch_stats(lens, None, n_def, masks, None, out, None, None, lens.shape[1], 0)
     return out
 
 
@@ -274,18 +341,54 @@ def rle_bits_masks(lens: torch.Tensor, n_def: torch.Tensor, te_lens: torch.Tenso
     (row m * B + b for lane b under masks[m]) -> (M * B,) int32 bit sizes
     of the RLE-coded tables. A CUDA tensor takes one ``rle_stats`` launch
     (bits mode)."""
-    masks = tuple(int(m) for m in masks)
+    masks = _check_masks(masks)
     B = lens.shape[0]
-    if te_lens.shape != (len(masks) * B, NCODELENSYMS):
-        raise ValueError(f"rle_stats: te_lens of shape {tuple(te_lens.shape)}, expected "
-                         f"({len(masks) * B}, {NCODELENSYMS})")
+    _check_te(te_lens, len(masks) * B)
     if lens.device.type == "cpu":
         return torch.cat([rle_bits_plain(lens, n_def, te_lens[i * B:(i + 1) * B], m)
                           for i, m in enumerate(masks)])
-    _check_stats(lens, n_def, masks)
+    _check_rows(lens, n_def)
     _build.check_cuda("rle_stats te_lens", te_lens, I32, 2)
     out = torch.empty(len(masks) * B, dtype=I32, device=lens.device)
-    _launch_stats(lens, n_def, masks, te_lens, out, 1)
+    _launch_stats(lens, None, n_def, masks, te_lens, out, None, None, lens.shape[1], 0)
+    return out
+
+
+def rle_histogram_tables(lit_len: torch.Tensor, off_len: torch.Tensor, masks):
+    """lit_len (B, 288), off_len (B, 32) int32 code lengths, M static CL
+    masks -> ((M * B, 19) CL-symbol histograms of each lane's concatenated
+    lengths, mask-major; n_lit, n_off (B,)). A CPU tensor takes the plain
+    form (``concat_lengths``, then ``rle_histogram_plain`` a mask); a CUDA
+    tensor one ``rle_stats`` launch, the concatenation in the kernel."""
+    masks = _check_masks(masks)
+    if lit_len.device.type == "cpu":
+        lens, n_lit, n_off, n_def = concat_lengths(lit_len, off_len)
+        return torch.cat([rle_histogram_plain(lens, n_def, m) for m in masks]), n_lit, n_off
+    _check_tables(lit_len, off_len)
+    B = lit_len.shape[0]
+    out = torch.empty((len(masks) * B, NCODELENSYMS), dtype=I32, device=lit_len.device)
+    n_lit = torch.empty(B, dtype=I32, device=lit_len.device)
+    n_off = torch.empty(B, dtype=I32, device=lit_len.device)
+    _launch_stats(lit_len, off_len, None, masks, None, out, n_lit, n_off, 257, 1)
+    return out, n_lit, n_off
+
+
+def rle_bits_tables(lit_len: torch.Tensor, off_len: torch.Tensor, te_lens: torch.Tensor,
+                    masks) -> torch.Tensor:
+    """lit_len (B, 288), off_len (B, 32), te_lens (M * B, 19) -> (M * B,)
+    int32 bit sizes of each lane's RLE-coded concatenated lengths under
+    masks[m] and te_lens row m * B + b. A CPU tensor takes the plain form;
+    a CUDA tensor one ``rle_stats`` launch."""
+    masks = _check_masks(masks)
+    B = lit_len.shape[0]
+    _check_te(te_lens, len(masks) * B)
+    if lit_len.device.type == "cpu":
+        lens, _, _, n_def = concat_lengths(lit_len, off_len)
+        return rle_bits_masks(lens, n_def, te_lens, masks)
+    _check_tables(lit_len, off_len)
+    _build.check_cuda("rle_stats te_lens", te_lens, I32, 2)
+    out = torch.empty(len(masks) * B, dtype=I32, device=lit_len.device)
+    _launch_stats(lit_len, off_len, None, masks, te_lens, out, None, None, 257, 1)
     return out
 
 
@@ -413,43 +516,139 @@ def _run_counts_scalar(value: int, r: int, mask: int):
     return n16, 0, 0, 1 + left, min(value, 15)
 
 
-def rle_stats_model(lens: torch.Tensor, n_def: torch.Tensor, masks, te_lens=None):
-    """The ``rle_stats`` kernel's schedule on CPU tensors, row by row ->
-    (the (M * B, 19) histograms, or with ``te_lens`` the (M * B,) bit
-    sizes, {counter: count} over ``STATS_COUNTERS``). Row m * B + b: lane
-    b's run starts as ballot words over its first n_def lengths, each
-    start's run ending at the next start or n_def, its counts in closed
-    form (``_run_counts_scalar``), summed with int32 wrap-around."""
-    B, L = lens.shape
+ZERO_RUN = 16  # the CL symbol field of a run of zeros (csrc/rle.cu)
+
+
+def _find_runs(lv: list, ov: list, nd_given, min_lit: int, min_off: int, stats: dict):
+    """One lane's row and runs as ``find_runs`` finds them, by one warp:
+    n_lit, n_off by max reductions, the row concatenated word by word, the
+    start ballots, each start's end from the rest of its word or the first
+    start of the next nonzero word, the runs compacted in order ->
+    (runs [(length, CL symbol)], n_lit, n_off)."""
+    n_lit = max(max((i + 1 for i, v in enumerate(lv) if v), default=0), min_lit)
+    n_off = max(max((j + 1 for j, v in enumerate(ov) if v), default=0), min_off)
+    nd = n_lit + n_off if nd_given is None else nd_given
+    n = min(nd, n_lit + n_off)
+    row = [lv[i] if i < n_lit else (ov[i - n_lit] if i - n_lit < n_off else 0)
+           for i in range(MAX_L)]
+    words = _start_words(row, n)
+    firsts = [k * WARP + (w & -w).bit_length() - 1 if w else None for k, w in enumerate(words)]
+    runs = []
+    for k, word in enumerate(words):
+        after = next((f for f in firsts[k + 1:] if f is not None), None)
+        for lane in range(WARP):
+            if not word >> lane & 1:
+                continue
+            i = k * WARP + lane
+            rest = word & ~((2 << lane) - 1) & 0xFFFFFFFF
+            e = k * WARP + (rest & -rest).bit_length() - 1 if rest else after
+            assert e is None or e == _next_start(words, i)
+            end = nd if e is None else min(e, nd)
+            runs.append((max(end - i, 1), ZERO_RUN if row[i] == 0 else min(max(row[i], 0), 15)))
+    stats["lanes"] += 1
+    stats["runs"] += len(runs)
+    return runs, n_lit, n_off
+
+
+
+def _nonzero_class_mask(c: int) -> int:
+    """A mask of nonzero-run class c (csrc/rle.cu nonzero_class_mask)."""
+    return 0 if c == 0 else 1 | (8 if (c - 1) & 1 else 0) | (16 if (c - 1) & 2 else 0)
+
+
+def _nonzero_class(mask: int) -> int:
+    return 1 + (mask >> 3 & 1) + 2 * (mask >> 4 & 1) if mask & 1 else 0
+
+
+def rle_stats_model(lit, off, n_def, masks, te_lens=None):
+    """The ``rle_stats`` kernels' schedule on CPU tensors, as the C entry
+    takes it: rows lit[b, :n_lit] ++ off[b, :n_off] (``off`` (B, 32) with
+    ``n_def`` None: the fused statistics of ``rle_histogram_tables`` /
+    ``rle_bits_tables``; ``off`` None with ``n_def``: rows already
+    concatenated). -> (the (M * B, 19) histograms, or with ``te_lens``
+    the (M * B,) bit sizes; n_lit, n_off (B,); {counter: count} over
+    ``STATS_COUNTERS``). Each lane's runs are found once
+    (``_find_runs``). One mask: the warp takes them in steps of 32, each
+    run's counts in closed form (``_run_counts_scalar``), the bins summed
+    packed (n_def < 2^PACK_BITS, asserting that no field overflows) or
+    else one add a group of lanes of equal symbol. Several masks: each run adds its counts under every
+    class of its kind (five for a nonzero run, by mask bits 1, 8, 16; four
+    for a run of zeros, by bits 2, 4) and each mask's row is read from its
+    two classes (bits: the dot product with its CL lengths). Sums wrap as
+    int32. Asserts that every row is written once, that a lane's runs are
+    found once, and that a class's counts are those of each of its masks."""
+    lits = lit.tolist()
+    B, L_lit = lit.shape
+    offs = [[] for _ in range(B)] if off is None else off.tolist()
+    nds = [None] * B if n_def is None else n_def.tolist()
+    min_lit, min_off = (L_lit, 0) if off is None else (257, 1)
     masks = [int(m) for m in masks]
-    stats = dict.fromkeys(STATS_COUNTERS, 0)
-    rows = lens.tolist()
-    nd = n_def.tolist()
+    M = len(masks)
     te = None if te_lens is None else te_lens.tolist()
-    out = []
-    for m, mask in enumerate(masks):
-        for b in range(B):
-            stats["rows"] += 1
-            row = rows[b]
-            words = _start_words(row, nd[b])
-            stats["words"] += len(words)
+    stats = dict.fromkeys(STATS_COUNTERS, 0)
+    out = [None] * (M * B)
+    n_lit_out, n_off_out = [0] * B, [0] * B
+    for b in range(B):
+        runs, n_lit_out[b], n_off_out[b] = _find_runs(lits[b], offs[b], nds[b], min_lit,
+                                                      min_off, stats)
+        rows = {}
+        if M == 1:  # a warp a lane, 32 runs a step
+            nd = n_lit_out[b] + n_off_out[b] if nds[b] is None else nds[b]
+            packed = nd < 1 << PACK_BITS
+            stats["packed_rows"] += packed
             hist = [0] * NCODELENSYMS
-            for i in range(min(nd[b], L)):
-                if not words[i // WARP] >> (i % WARP) & 1:
-                    continue
-                stats["runs"] += 1
-                ns = _next_start(words, i)
-                r = max((nd[b] if ns is None else min(ns, nd[b])) - i, 1)
-                n16, n17, n18, lit_c, lit_v = _run_counts_scalar(row[i], r, mask)
-                idx = min(max(lit_v, 0), 15)
-                for k, v in ((idx, lit_c), (16, n16), (17, n17), (18, n18)):
-                    hist[k] = _i32(hist[k] + v)
+            for base in range(0, len(runs), WARP):
+                stats["steps"] += 1
+                step = []
+                for r, sym in runs[base:base + WARP]:
+                    n16, n17, n18, lit_c, _ = _run_counts_scalar(0 if sym == ZERO_RUN else 1, r,
+                                                                 masks[0])
+                    step.append((0 if sym == ZERO_RUN else sym, lit_c))
+                    for k, v in ((16, n16), (17, n17), (18, n18)):
+                        hist[k] = _i32(hist[k] + v)
+                if not packed:
+                    stats["group_adds"] += len({bin_ for bin_, _ in step})
+                for bin_, lit_c in step:
+                    hist[bin_] = _i32(hist[bin_] + lit_c)
+            if packed:  # every field's total fits its bits: the bins' sum is at most nd
+                assert sum(hist) <= max(nd, 0) and max(hist) < 1 << PACK_BITS
+            rows[0] = hist
+        else:  # a block a lane: every class once, a thread a run
+            lit_cls = [[0] * 16 for _ in range(5)]
+            n16_cls = [0] * 5
+            zero_cls = [[0, 0, 0] for _ in range(4)]
+            for r, sym in runs:
+                if sym == ZERO_RUN:
+                    for c in range(4):
+                        _, n17, n18, lit_c, _ = _run_counts_scalar(0, r, c << 1)
+                        zero_cls[c] = [_i32(x + y) for x, y in zip(zero_cls[c], (lit_c, n17, n18))]
+                        stats["class_counts"] += 1
+                else:
+                    for c in range(5):
+                        n16, _, _, lit_c, _ = _run_counts_scalar(1, r, _nonzero_class_mask(c))
+                        lit_cls[c][sym] = _i32(lit_cls[c][sym] + lit_c)
+                        n16_cls[c] = _i32(n16_cls[c] + n16)
+                        stats["class_counts"] += 1
+            for m, mask in enumerate(masks):
+                nc, zc = _nonzero_class(mask), mask >> 1 & 3
+                for r, sym in runs:  # the classes are exact: each mask's own counts
+                    got = _run_counts_scalar(0 if sym == ZERO_RUN else 1, r,
+                                             (zc << 1) if sym == ZERO_RUN else _nonzero_class_mask(nc))
+                    assert got[:4] == _run_counts_scalar(0 if sym == ZERO_RUN else 1, r, mask)[:4]
+                hist = list(lit_cls[nc]) + [n16_cls[nc], zero_cls[zc][1], zero_cls[zc][2]]
+                hist[0] = _i32(hist[0] + zero_cls[zc][0])
+                rows[m] = hist
+        for m, hist in rows.items():
+            stats["rows"] += 1
+            row = m * B + b
+            assert out[row] is None
             if te is None:
-                out.append(hist)
+                out[row] = hist
             else:
-                t = te[m * B + b]
+                t = te[row]
                 bits = sum(hist[k] * t[k] for k in range(16))
                 bits += hist[16] * (t[16] + 2) + hist[17] * (t[17] + 3) + hist[18] * (t[18] + 7)
-                out.append(_i32(bits))
-    shape = (len(masks) * B, NCODELENSYMS) if te is None else (len(masks) * B,)
-    return torch.tensor(out, dtype=I32).view(shape), stats
+                out[row] = _i32(bits)
+    shape = (M * B, NCODELENSYMS) if te is None else (M * B,)
+    return (torch.tensor(out, dtype=I32).view(shape), torch.tensor(n_lit_out, dtype=I32),
+            torch.tensor(n_off_out, dtype=I32), stats)

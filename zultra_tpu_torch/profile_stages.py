@@ -20,9 +20,11 @@ program's shapes met eagerly) and a second (every program's capture,
 
 Also the first and second calls' seconds, the peak memory the allocator
 reserved by the end of the untraced call, and the programs: their
-number, the graph pool's bytes, each one's capture ms, and each one
+number, the graph pool's bytes, each one's capture ms, each one
 replayed against an eager call of its function on the untraced call's
-inputs (equal; the replay's device ms by events). The eager run splits
+inputs (equal; the replay's device ms by events), and one traced replay
+of each: its launches and their device time, and those of torch's own
+ops apart from the port's kernels, summed by program function. The eager run splits
 the match tables into the upload, the segments, the 8 stored doubling
 rounds and the rounds past them, the LCP, the walk and the lanes, and the
 block plans into their passes (the DP into its lane preparation and the
@@ -119,8 +121,8 @@ SUBSTAGES = [
     (block_torch, "emit_tokens", "block plans: emit"),
     # Inside the dynamic costs of both stages and the mask search; not
     # part of the wall's sum.
-    (entropy_torch, "rle_histogram_masks", "(in split and plans) rle_stats histograms"),
-    (entropy_torch, "rle_bits_masks", "(in split and plans) rle_stats bits"),
+    (entropy_torch, "rle_histogram_tables", "(in split and plans) rle_stats histograms"),
+    (entropy_torch, "rle_bits_tables", "(in split and plans) rle_stats bits"),
 ]
 
 
@@ -153,6 +155,41 @@ def _staged(run, stages, eager: bool):
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     return wall, {label: seconds[label] for _, _, label in stages}
+
+
+def _replay_launches(dev, port: list) -> dict:
+    """{program function: its graphs, then over one traced replay of each:
+    kernel launches (copies and fills included) and their device ms, those
+    of torch's own (not a port kernel, ``port`` the kernel names), and
+    torch's launches by kernel name (the first 60 characters)}. A trace
+    may drop launches: each replay is traced until it shows one."""
+    pattern = re.compile(rf"::({'|'.join(port)})(?:_[a-z]+)?_kernel")
+    progs = programs.device_programs(dev)
+    rows = {}
+    with progs.lock, progs.graphs.current():
+        for p in progs.programs.values():
+            row = rows.setdefault(p.fn.__qualname__, dict(
+                dict.fromkeys(("graphs", "launches", "device_ms", "torch_launches",
+                               "torch_device_ms"), 0), torch_by_name=defaultdict(int)))
+            row["graphs"] += 1
+            for _ in range(3):
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    progs.graphs.replay(p.graph)
+                    torch.cuda.synchronize()
+                evs = [ev for ev in prof.key_averages() if ev.count
+                       and ev.device_type == torch.autograd.DeviceType.CUDA]
+                if evs:
+                    break
+            for ev in evs:
+                ms = ev.self_device_time_total / 1e3
+                row["launches"] += ev.count
+                row["device_ms"] += ms
+                if not pattern.search(ev.key):
+                    row["torch_launches"] += ev.count
+                    row["torch_device_ms"] += ms
+                    row["torch_by_name"][ev.key[:60]] += ev.count
+    return rows
 
 
 def _golden_match(case: dict, dev) -> list:
@@ -303,6 +340,16 @@ def main() -> int:
         print(f"  {name}: {len(mine)} graphs, replays {sum(p['replay_ms'] for p in mine):.3f} "
               f"ms of device time, eager calls {sum(p['eager_ms'] for p in mine):.3f} ms "
               f"(events); replay equal to eager")
+    # What each program's replays launch, the port's kernels apart from
+    # torch's own (the planner's and splitter's torch launches are the ops
+    # around the kernels).
+    replay_launches = _replay_launches(dev, list(launches))
+    for name, r in sorted(replay_launches.items()):
+        print(f"  {name}: one replay of each of its {r['graphs']} graphs launches {r['launches']}"
+              f" ({r['device_ms']:.3f} ms device), of them torch's {r['torch_launches']} "
+              f"({r['torch_device_ms']:.3f} ms)")
+        for key, count in sorted(r["torch_by_name"].items(), key=lambda kv: -kv[1])[:12]:
+            print(f"    {count:6d}x  {key}")
 
     runs = {"stage-timed": _staged(run, STAGES, eager=False),
             "eager stage-timed": _staged(run, STAGES + SUBSTAGES, eager=True)}
@@ -355,7 +402,7 @@ def main() -> int:
         "wall_s": wall,
         "mb_per_s": len(data) / 1e6 / wall, "launches": launches,
         "max_memory_reserved": reserved, "programs": progs,
-        "pool_bytes": pool,
+        "pool_bytes": pool, "replay_launches": replay_launches,
         "stage_timed": {name: {"wall_s": secs, "stages_s": stages}
                         for name, (secs, stages) in runs.items()},
         "traced_wall_s": traced, "device_busy_s": busy, "idle_share_traced": 1 - busy / traced,
