@@ -21,8 +21,9 @@ their length distribution), a seeded edge batch and
 histogram on the 4 MiB corpus, an unaligned view, 64 MiB of seeded
 bytes and 64 MiB of one value, beside ``torch.bincount``; and the three
 kernels of the planner's and splitter's scans at the shapes the 4 MiB
-gzip run gives them: the RLE decision sweep (every histogram batch of
-the planner), the RLE statistics (every shape the run called, from
+gzip run gives them: the RLE decision sweep (the planner's pair call,
+both histogram sets in one launch, at every lane count of the run, and
+each set alone), the RLE statistics (every shape the run called, from
 the code lengths themselves: the mask search's 20 masks in one launch a
 mode, the one-mask calls of the dynamic costs; the histograms also
 with their bins summed the other way; beside the launch floor) and the
@@ -31,8 +32,12 @@ with each of a call's three launches, beside ``torch.cumsum`` of their
 one-hot), each with its bound over the run; and the four kernels of the planner's
 fused passes (``csrc/plan.cu``) at the shapes the 4 MiB gzip run gives
 them: the DP's lane preparation and the emission on every planner
-bucket, the token histograms on every bucket with the splitter's marks
-(the match tables' first row, a strided view) and with the chain's, and
+bucket (the emission also on a lane of length 0, a lane of literals
+alone and a lane cut to no multiple of its tile, with the device time
+of the memset of its words beside the kernel's, and of a
+``torch.zeros`` of the same words), the token histograms
+on every bucket with the splitter's marks (the match tables' first row,
+a strided view) and with the chain's, and
 on a zero-run lane and a one-byte lane (``plan_cuda.hammer_lanes``), and
 the (key, index) order of every row shape the planner and the splitter
 sort, of rows of one repeated key and of rows of 1024 keys, beside
@@ -195,6 +200,55 @@ def launch_device_ms(fn, kernel: str, reps: int) -> dict:
         if m and ev.count:
             found[m.group(1)] = ev.self_device_time_total / ev.count / 1e3
     return found
+
+
+def zeroing_device_ms(fn, reps: int = 20):
+    """Mean device ms a call of the zeroing in ``fn``: its memsets or
+    torch's fill kernels (a torch.profiler trace of ``reps`` calls after
+    one warm-up call). A trace may drop device events: one that recorded
+    fewer zeroings than calls is taken again, up to five times, and the
+    last one that recorded any is averaged over the zeroings it holds;
+    None when no trace holds one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    got = None
+    for _ in range(5):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if ev.count and ev.self_device_time_total
+               and ("memset" in ev.key.lower() or "FillFunctor" in ev.key)]
+        us = sum(ev.self_device_time_total for ev in evs)
+        count = sum(ev.count for ev in evs)
+        if count >= reps:
+            return us / reps / 1e3
+        if count:
+            got = us / count / 1e3
+    return got
+
+
+def emit_edge_calls(buckets: dict) -> dict:
+    """{label: emission args} at the edges of its tiling, cut from the
+    run's own calls ({shape: args}): a lane of length 0 (no mark) at the
+    128-lane bucket's width, a lane of literals alone at the one-lane
+    bucket's, and the one-lane bucket cut to 100003 positions (a multiple
+    neither of a tile nor of 8: the byte-wise loads)."""
+    wide = buckets[max(buckets)]
+    one = next(args for (B, _), args in buckets.items() if B == 1)
+    lane0 = tuple(a[:1].contiguous() for a in wide)
+    zero = torch.zeros_like(one[1])
+    cut = 100003
+    return {
+        f"length-0 lane {tuple(lane0[0].shape)}": (*lane0[:7], torch.zeros_like(lane0[7])),
+        f"literals alone {tuple(one[0].shape)}": (one[0], zero, zero, *one[3:7],
+                                                   torch.ones_like(one[7])),
+        f"cut lane (1, {cut})": tuple(a[:, :cut].contiguous() if a.shape[1] > cut else a
+                                      for a in one),
+    }
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
@@ -375,7 +429,7 @@ def main() -> int:
     emitted = {}  # the first planner bucket's lane lengths, emission arguments and result
     # The scans' arguments of the run, by shape: the sweep's histograms, the
     # RLE statistics' calls (mode, lanes, masks), the splitter's tokens.
-    real_sweep = block_torch.optimize_for_rle
+    real_sweep = block_torch.optimize_for_rle_pair
     real_hist, real_bits = entropy_torch.rle_histogram_tables, entropy_torch.rle_bits_tables
     real_prefix = split_torch.prefix_tables
     scan_args = {"rle_sweep": {}, "rle_stats": {}, "prefix_tables": {}}
@@ -386,7 +440,8 @@ def main() -> int:
     # And how often the run calls the histograms and the sorts at each
     # shape (a program's eager first call launches what its replays do):
     # each shape's bound times its calls, summed, is the bound over the run.
-    fused_calls = {"token_hist": {}, "lex_order": {}, "rle_stats": {}, "prefix_tables": {}}
+    fused_calls = {"token_hist": {}, "lex_order": {}, "rle_stats": {}, "prefix_tables": {},
+                   "rle_sweep": {}, "emit_tokens": {}}
 
     # The planner and the splitter are programs (ops/programs.py): the
     # first call of each shape runs eagerly, the second is captured into a
@@ -402,9 +457,11 @@ def main() -> int:
         if not torch.cuda.is_current_stream_capturing():
             table[key] = table.get(key, 0) + 1
 
-    def recording_sweep(counts):
-        record(scan_args["rle_sweep"], tuple(counts.shape), lambda: (counts.clone(),))
-        return real_sweep(counts)
+    def recording_sweep(lit, off):
+        key = (lit.shape[0], lit.shape[1], off.shape[1])
+        record(scan_args["rle_sweep"], key, lambda: (lit.clone(), off.clone()))
+        count(fused_calls["rle_sweep"], key)
+        return real_sweep(lit, off)
 
     def recording_hist(lit, off, masks):
         key = ("histogram", lit.shape[0], len(masks))
@@ -442,6 +499,7 @@ def main() -> int:
         record(emitted, "args", lambda: args)
         record(emitted, "out", lambda: out)
         record(fused_args["emit_tokens"], tuple(args[0].shape), lambda: args)
+        count(fused_calls["emit_tokens"], tuple(args[0].shape))
         return out
 
     def recording_lex(key):
@@ -451,7 +509,7 @@ def main() -> int:
 
     block_torch.run_dp = recording_run_dp
     block_torch.token_hist, block_torch.emit_tokens = recording_token_hist, recording_emit
-    block_torch.optimize_for_rle = recording_sweep
+    block_torch.optimize_for_rle_pair = recording_sweep
     entropy_torch.rle_histogram_tables, entropy_torch.rle_bits_tables = recording_hist, recording_bits
     split_torch.prefix_tables = recording_prefix
     entropy_torch._lex_order = recording_lex
@@ -470,7 +528,7 @@ def main() -> int:
     finally:
         block_torch.run_dp = real_run_dp
         block_torch.token_hist, block_torch.emit_tokens = real_token_hist, real_emit
-        block_torch.optimize_for_rle = real_sweep
+        block_torch.optimize_for_rle_pair = real_sweep
         entropy_torch.rle_histogram_tables, entropy_torch.rle_bits_tables = real_hist, real_bits
         split_torch.prefix_tables = real_prefix
         entropy_torch._lex_order = real_lex
@@ -682,12 +740,6 @@ def main() -> int:
               + ("" if library is None else f", {library_name} {row['library_ms']:.4f} ms"))
         return row
 
-    sweep_rows = [scan_row("rle_sweep", f"planner {B} x {L}", rle_cuda.optimize_for_rle,
-                           rle_cuda.optimize_for_rle_plain, args, 20)
-                  for (B, L), args in sorted(scan_args["rle_sweep"].items(),
-                                             key=lambda kv: (-kv[0][1], -kv[0][0]))]
-    results["rle_sweep"] = dict(sweep_rows[0], plain_device="cuda", rows=sweep_rows)
-
     def over_run(name, rows, keys):  # rows[i] is the run's shape keys[i]
         for row, key in zip(rows, keys):
             row["run_launches"] = fused_calls[name][key]
@@ -695,6 +747,24 @@ def main() -> int:
         print(f"{name} over the run: {sum(fused_calls[name].values())} calls "
               f"({eager_counts[name]} launches counted), bound {total:.4g} ms")
         return total
+
+    # The sweep: the planner's pair call (its (B, 288) and (B, 32)
+    # histograms in one launch) at every lane count of the run, then each
+    # set alone through the single-set entry.
+    def sweep_plain(lit, off):
+        return rle_cuda.optimize_for_rle_plain(lit), rle_cuda.optimize_for_rle_plain(off)
+
+    sweep_keys = sorted(scan_args["rle_sweep"], reverse=True)
+    sweep_rows = [scan_row("rle_sweep", f"planner pair {B} x {La} + {B} x {Lb}",
+                           rle_cuda.optimize_for_rle_pair, sweep_plain,
+                           scan_args["rle_sweep"][B, La, Lb], 20)
+                  for B, La, Lb in sweep_keys]
+    sweep_run_bound = over_run("rle_sweep", sweep_rows, sweep_keys)
+    sweep_rows += [scan_row("rle_sweep", f"one set {tuple(rows.shape)}", rle_cuda.optimize_for_rle,
+                            rle_cuda.optimize_for_rle_plain, (rows,), 20)
+                   for key in sweep_keys for rows in scan_args["rle_sweep"][key]]
+    results["rle_sweep"] = dict(sweep_rows[0], plain_device="cuda", rows=sweep_rows,
+                                run_bound_ms=sweep_run_bound)
 
     # The RLE statistics take the code lengths themselves (the concatenation
     # in the kernel). Every shape of the run, both modes, beside the plain
@@ -818,10 +888,49 @@ def main() -> int:
                                         (h_win[sl], ln, of, h_marks[sl]), 5, need=hist_need))
     results["token_hist"] = dict(largest(hist_rows_f), plain_device="cuda", rows=hist_rows_f,
                                  run_bound_ms=hist_run_bound)
-    emit_rows = [scan_row("emit_tokens", f"gzip bucket {shape}", block_torch.emit_tokens,
-                          block_torch.emit_tokens_plain, args, 5)
-                 for shape, args in sorted(fused_args["emit_tokens"].items())]
-    results["emit_tokens"] = dict(largest(emit_rows), plain_device="cuda", rows=emit_rows)
+    # The emission at every bucket of the run, then at the edges of its
+    # tiling (``emit_edge_calls``). A call is the kernel and the memset
+    # that zeroes its words, status words and ticket (the C entry's), so
+    # its device ms are the two together, and its bound counts what the
+    # call's output and this run's marks need: every mark, a marked
+    # position's length, a match's offset, a literal's byte, the code
+    # tables, and the whole (B, num_words) words and the totals written
+    # once. Beside it, a torch.zeros of the same words (a fill kernel).
+    def emit_need(args, outs):
+        win, lens, offs, *tables, is_tok = args
+        return hist_need((win, lens, offs, is_tok), outs) + nbytes(*tables)
+
+    emit_keys = sorted(fused_args["emit_tokens"])
+    emit_calls = [(f"gzip bucket {shape}", fused_args["emit_tokens"][shape])
+                  for shape in emit_keys]
+    emit_calls += list(emit_edge_calls(fused_args["emit_tokens"]).items())
+    emit_rows = []
+    for label, args in emit_calls:
+        row = scan_row("emit_tokens", label, block_torch.emit_tokens,
+                       block_torch.emit_tokens_plain, args, 5, need=emit_need)
+        words = block_torch.emit_tokens(*args)[0]
+        row["memset_device_ms"] = zeroing_device_ms(lambda: block_torch.emit_tokens(*args))
+        if row["device_ms"] is None or row["memset_device_ms"] is None:
+            raise SystemExit(f"emit_tokens [{label}]: a trace of its calls holds no kernel "
+                             "or no memset")
+        row["call_device_ms"] = row["device_ms"] + row["memset_device_ms"]
+        row["bound_share"] = row["bound_ms"] / row["call_device_ms"]
+        row["zeros_device_ms"] = zeroing_device_ms(
+            lambda: torch.zeros(words.shape, dtype=words.dtype, device=dev))
+        emit_rows.append(row)
+        print(f"emit_tokens [{label}]: device ms a call {fmt_ms(row['call_device_ms'])} (the "
+              f"kernel's and the memset's {fmt_ms(row['memset_device_ms'])}), "
+              f"{row['bound_share']:.3f} of its bound; torch.zeros of its words "
+              f"{fmt_ms(row['zeros_device_ms'])}")
+    emit_run_bound = over_run("emit_tokens", emit_rows, emit_keys)
+    emit_run = {k: sum(r["run_launches"] * (r[k] or 0.0) for r in emit_rows[:len(emit_keys)])
+                for k in ("device_ms", "memset_device_ms", "call_device_ms", "zeros_device_ms")}
+    print(f"emit_tokens over the run, device: kernel {emit_run['device_ms']:.4f} ms, memset "
+          f"{emit_run['memset_device_ms']:.4f} ms, the calls {emit_run['call_device_ms']:.4f} ms, "
+          f"{emit_run_bound / emit_run['call_device_ms']:.3f} of their bound; torch.zeros of "
+          f"the words {emit_run['zeros_device_ms']:.4f} ms")
+    results["emit_tokens"] = dict(largest(emit_rows), plain_device="cuda", rows=emit_rows,
+                                  run_bound_ms=emit_run_bound, run_device_ms=emit_run)
     # Beside the run's shapes: rows of one repeated key (the splitter's
     # 4096 x 288 and one planner row) and rows of 1024 keys (MAX_SORT).
     lex_keys = sorted(fused_args["lex_order"], reverse=True)

@@ -308,6 +308,26 @@ def test_rle_sweep_kernel_equals_plain(cuda, L, B):
     assert sum(names.values()) <= TRACED_CALLS, names
 
 
+@pytest.mark.parametrize("B", [1, 4, 128])
+def test_rle_sweep_pair_kernel_equals_plain(cuda, B):
+    """The planner's pair call (B rows of 288 and B of 32, the 4 MiB gzip
+    run's shapes): one launch for both sets, each equal to the plain form;
+    a trace shows the sweep kernel alone, once a call."""
+    rng = np.random.default_rng(B + 3)
+    lit, off = _rle_rows(rng, B, 288), _rle_rows(rng, B, 32)
+    lit_d, off_d = lit.to(cuda), off.to(cuda)
+    ops.reset_launch_counts()
+    got = rle_cuda.optimize_for_rle_pair(lit_d, off_d)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rle_sweep"] == 1
+    for g, rows in zip(got, (lit, off)):
+        assert torch.equal(g.cpu(), rle_cuda.optimize_for_rle_plain(rows))
+    names = _device_kernels(lambda: rle_cuda.optimize_for_rle_pair(lit_d, off_d),
+                            "rle_sweep_kernel")
+    assert len(names) == 1 and "rle_sweep_kernel" in next(iter(names)), names
+    assert sum(names.values()) <= TRACED_CALLS, names
+
+
 def _len_rows(rng, B, L):
     """Code-length rows: runs of 7, 8 and 9 of one length, zero runs
     around 3/11/138, lengths above 15, and seeded runs; n_def from 0 to L."""
@@ -911,6 +931,7 @@ def test_padded_zero_length_lanes_on_the_card(cuda):
     assert all(counts[k] > 0 for k in ("dp", "chain", "mk12", "kraft", "rle_sweep",
                                         "rle_stats", "prep_lanes", "token_hist",
                                         "emit_tokens", "lex_order")), counts
+    assert counts["rle_sweep"] == 1 and counts["emit_tokens"] == 1, counts
     plain = block_torch.plan_block_core(*args)
     for key in plain:
         assert torch.equal(out[key].cpu(), plain[key]), key
@@ -1029,6 +1050,50 @@ def test_planner_fused_kernels_equal_plain(cuda, B, n):
     assert [counts[k] for k in ("prep_lanes", "token_hist", "emit_tokens")] == [1, 3, 1]
 
 
+def _emit_edge_args(B, n, dev, seed):
+    """Emission arguments of B lanes of n positions: the planner inputs'
+    lanes (the first full, the last of length 0 where B > 1) with the
+    chain's marks of their chosen parse, lane 1 (where B > 2) a lane of
+    no match, and random codes below 2^length."""
+    window, mlens, moffs, length, _, codes = _planner_inputs(B, n, seed, dev)
+    lens, offs = mlens[:, :, 0], moffs[:, :, 0]
+    best_len = torch.minimum(lens, torch.clamp(length[:, None] - torch.arange(
+        n, device=dev, dtype=torch.int32)[None, :], min=0))
+    best_len = torch.where(best_len >= 3, best_len, 0)
+    if B > 2:
+        best_len[1] = 0  # literals alone
+    best_off = torch.where(best_len >= 3, offs, 0)
+    marks = chain_cuda.chain_marks(torch.where(best_len >= 3, best_len, 1),
+                                   torch.zeros_like(length), length)
+    return (window, best_len.contiguous(), best_off.contiguous(), *codes, marks)
+
+
+@pytest.mark.parametrize("B,n", [(1, 2048), (1, 131072), (3, 4099), (4, 65536), (128, 32768),
+                                 (2, 1)])
+def test_emit_tokens_edge_shapes_equal_plain(cuda, B, n):
+    """The emission kernel at the edges of its tiling: one tile, a lane of
+    length 0 (the EOD alone), a lane of no match, n not a multiple of the
+    tile nor of a thread's 8 positions (the byte-wise loads), a misaligned
+    copy of every row, B = 1 and B = 128: equal to the plain form, one
+    launch count a call; a trace shows one emission kernel a call."""
+    args = _emit_edge_args(B, n, cuda, B * 31 + n)
+    want = block_torch.emit_tokens_plain(*args)
+    shifted = [_misaligned(a) for a in args]
+    for label, call in (("aligned", args), ("misaligned", shifted)):
+        ops.reset_launch_counts()
+        got = block_torch.emit_tokens(*call)
+        _same(got, want, f"emit_tokens {label} {B} x {n}")
+        assert ops.launch_counts()["emit_tokens"] == 1
+    if B > 1:
+        assert int(want[1][-1]) == int(args[4][-1, 256])  # length 0: the EOD alone
+    names = _device_kernels(lambda: block_torch.emit_tokens(*args), "emit_tokens_kernel")
+    kernels = {k: v for k, v in names.items() if "emit_tokens" in k}
+    assert len(kernels) == 1 and sum(kernels.values()) <= TRACED_CALLS, names
+    others = [k for k in names if "emit_tokens" not in k and "memset" not in k.lower()
+              and "fill" not in k.lower()]
+    assert not others, names
+
+
 def test_token_hist_unaligned_rows_equal_plain(cuda):
     """Rows the wide loads cannot take (n % 8 != 0, a window and marks
     that start one byte past an 8-byte boundary), with contiguous and
@@ -1122,6 +1187,7 @@ def test_planner_replay_launches_the_fused_kernels(cuda):
     launches = prog["launches"]
     assert launches["prep_lanes"] == 4 and launches["token_hist"] == 5
     assert launches["emit_tokens"] == 1 and launches["lex_order"] > 0, launches
+    assert launches["rle_sweep"] == 1, launches
     counts = ops.launch_counts()
     assert all(counts[k] == 3 * launches[k] for k in launches), (counts, launches)
     for out in outs:

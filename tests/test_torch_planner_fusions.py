@@ -248,19 +248,94 @@ def test_emit_tokens_plain_equals_jax(emit_case):
     assert int(total_bits[0]) == int(args[4][0, 256])  # length 0: the EOD alone
 
 
-@pytest.mark.parametrize("tile,threads", [(pc.TILE, pc.THREADS), (64, 16), (100, 32)])
-def test_emit_tokens_model_equals_jax(emit_case, tile, threads):
-    """The three launches' schedule: with small chunks many chunks start
-    inside a word, so words take pieces from two chunks, and fields
-    straddle word edges."""
+@pytest.mark.parametrize("tile,per_thread,seed", [
+    (pc.EMIT_TILE, pc.EMIT_PER, 0), (pc.EMIT_TILE, pc.EMIT_PER, 7), (64, 4, 1), (100, 5, 2),
+    (32, 1, 3)])
+def test_emit_tokens_model_equals_jax(emit_case, tile, per_thread, seed):
+    """The one launch's schedule, tiles completing in a seeded order: with
+    small tiles many tiles start inside a word, so words take bits from
+    two tiles, look-backs wait on tiles not yet published, and fields
+    straddle word edges; at every tile size threads share words in shared
+    memory."""
     args, (want_words, want_bits) = emit_case
-    words, total_bits, stats = pc.emit_tokens_model(*args, tile=tile, threads=threads)
+    words, total_bits, stats = pc.emit_tokens_model(*args, tile=tile, per_thread=per_thread,
+                                                    order_seed=seed)
     _eq(want_words.astype(np.int64), words, "words")
     _eq(want_bits, total_bits, "total_bits")
-    assert stats["chunks"] == 4 * -(-N // tile)
-    assert stats["straddle_word"] > 0
-    if tile < pc.TILE:
-        assert stats["unaligned_chunks"] > 0 and stats["shared_words"] > 0
+    assert stats["tiles"] == 4 * -(-N // tile)
+    assert stats["straddle_word"] > 0 and stats["thread_shared_words"] > 0
+    assert stats["lookback_rounds"] >= 4 * (-(-N // tile) - 1)  # every tile past a lane's first
+    if tile < pc.EMIT_TILE:
+        assert stats["unaligned_tiles"] > 0 and stats["shared_words"] > 0
+        assert stats["lookback_waits"] > 0
+
+
+def _emit_edge_case():
+    """Three lanes of 1000 positions (not a multiple of any tile below):
+    lane 0 of length 0 (the EOD alone), lane 1 with tokens in its first 90
+    positions alone (tiles with no token), lane 2 of literals and matches
+    to its end; dynamic codes from the lanes' own histograms."""
+    rng = np.random.default_rng(21)
+    n = 1000
+    win = rng.integers(0, 256, (3, n)).astype(np.uint8)
+    mlens = np.where(rng.random((3, n, 8)) < 0.2, rng.integers(3, 259, (3, n, 8)), 0)
+    moffs = np.where(mlens >= 3, rng.choice(EDGE_OFFSETS + (2, 77), (3, n, 8)), 0)
+    length = np.array([0, 90, n], np.int32)
+    lanes = (win, mlens.astype(np.int32), moffs.astype(np.int32), length)
+    ln = torch.from_numpy(length)
+    best_len = torch.from_numpy(mlens[:, :, 0].astype(np.int32))
+    best_len = torch.minimum(best_len, torch.clamp(ln[:, None] - torch.arange(n)[None, :], min=0))
+    best_len = torch.where(best_len >= 3, best_len, 0)
+    best_off = torch.where(best_len >= 3, torch.from_numpy(lanes[2][:, :, 0]), 0)
+    is_tok = _marks(best_len, ln)
+    w = torch.from_numpy(win)
+    lit, off, _ = block_torch.token_hist(w, best_len, best_off, ln, is_tok)
+    lit_len, off_len = build_lengths(lit, 15), build_lengths(off, 15)
+    args = [w, best_len, best_off, canonical_codewords(lit_len), lit_len,
+            canonical_codewords(off_len), off_len, is_tok]
+    want = jax.jit(block_jax._emit_tokens, static_argnums=8)(
+        *[jnp.asarray(a.numpy()) for a in args[:7]], jnp.asarray(length), n,
+        jnp.asarray(is_tok.numpy()))
+    return args, [np.asarray(x) for x in want]
+
+
+@pytest.fixture(scope="module")
+def emit_edge_case():
+    return _emit_edge_case()
+
+
+@pytest.mark.parametrize("tile,per_thread,resident,seed",
+                         [(pc.EMIT_TILE, pc.EMIT_PER, 8, 0), (64, 8, 1, 4), (64, 8, 64, 5),
+                          (48, 2, 3, 6)])
+def test_emit_tokens_model_edge_lanes_equal_jax(emit_edge_case, tile, per_thread, resident,
+                                               seed):
+    """A lane of length 0, tiles with no token, a last tile cut short, one
+    block resident at a time (tiles in ticket order) and many in a seeded
+    order: the plain form and the model equal ``block_jax._emit_tokens``."""
+    args, (want_words, want_bits) = emit_edge_case
+    _eq(want_words.astype(np.int64), block_torch.emit_tokens(*args)[0], "plain words")
+    words, total_bits, stats = pc.emit_tokens_model(*args, tile=tile, per_thread=per_thread,
+                                                    order_seed=seed, resident=resident)
+    _eq(want_words.astype(np.int64), words, "words")
+    _eq(want_bits, total_bits, "total_bits")
+    assert int(total_bits[0]) == int(args[4][0, 256])  # length 0: the EOD alone
+    assert stats["tiles"] == 3 * -(-1000 // tile)
+    if resident == 1:
+        assert stats["lookback_waits"] == 0
+
+
+@pytest.mark.parametrize("case", ["emit_case", "emit_edge_case"])
+def test_emit_fields_fit_their_bits(request, case):
+    """The kernel and its model OR each field into the words where the
+    plain form and ``block_jax._emit_tokens`` add: the two agree because
+    every field's value lies below 2^its width. Holds on the path's codes
+    (the static tables, ``canonical_codewords`` of built lengths)."""
+    args, _ = request.getfixturevalue(case)
+    fields = pc.emit_fields(*[a.numpy() for a in args])
+    for v, n in (fields[:2], fields[2:]):
+        assert (v >= 0).all() and (n >= 0).all() and (n <= 64).all()
+        assert ((v >> n) == 0).all()
+    assert (fields[1] > 0).any() and (fields[3] > 0).any()
 
 
 # ---------------------------------------------------------------------------

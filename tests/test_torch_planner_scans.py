@@ -1,6 +1,7 @@
 """The planner's and splitter's scans in the port against the JAX package
 on the CPU: the Zopfli RLE decision sweep (``rle_cuda.optimize_for_rle``
-against ``entropy_jax.optimize_for_rle_jax``), the RLE statistics of
+and the pair entry the planner calls, ``optimize_for_rle_pair``, against
+``entropy_jax.optimize_for_rle_jax``), the RLE statistics of
 code-length tables (``rle_histogram_masks`` / ``rle_bits_masks`` against
 ``entropy_jax.rle_histogram`` / ``rle_bits`` under every mask of
 ``MASK_ORDER``, and the CL-mask search), and the splitter's prefix tables
@@ -69,6 +70,17 @@ def _sweep_rows(L, seed):
         r = np.where(rng.random(L) < 0.15, 0, r) + np.where(rng.random(L) < 0.05, 200, 0)
         r[rng.integers(L // 2, L + 1) :] = 0
         rows.append(r.astype(np.int32))
+    # A boundary at every position: one good run, and steps of 99 from
+    # the second position on; no boundary before eff: steps below 4 and no
+    # run of 7.
+    pos = np.arange(L)
+    rows += [np.full(L, 9, np.int32), np.where(pos % 2, 100, 1).astype(np.int32),
+             (100 + pos % 3).astype(np.int32)]
+    # Totals and four-wide sums that wrap int32, and differences that do.
+    top, low = np.iinfo(np.int32).max, np.iinfo(np.int32).min
+    rows += [((1 << 30) + pos % 3).astype(np.int32), (top - pos % 3).astype(np.int32),
+             np.where(pos % 5 < 2, top, low).astype(np.int32),
+             np.where(pos % 3 == 0, low, pos * 7).astype(np.int32)]
     return np.stack([r[:L] for r in rows])
 
 
@@ -82,7 +94,26 @@ def test_rle_sweep_plain_and_model_equal_jax(L):
     got, stats = rc.rle_sweep_model(ct)
     _eq(want, got, "model")
     assert stats["segments"] > 0 and stats["rewritten"] > 0  # rows that are rewritten
-    assert stats["steps"] == int((np.where(c != 0, np.arange(L) + 1, 0).max(axis=1) + 1).sum())
+    eff = np.where(c != 0, np.arange(L) + 1, 0).max(axis=1)
+    assert stats["words"] == int((-(-eff // 32)).sum())  # the chain's words below eff
+    assert stats["tests"] == 32 * 32 * stats["words"]
+    assert stats["doubling_rounds"] == 5 * stats["words"]
+    assert stats["boundaries"] >= int((eff > 0).sum()) + L - 1  # the row of boundaries
+
+
+@pytest.mark.parametrize("B", [1, 5])
+def test_rle_sweep_pair_equals_two_plain_calls_and_jax(B):
+    """The pair entry on CPU tensors (a planner call's (B, 288) and (B, 32)
+    histograms) equals two plain calls, and the JAX sweep of each set; the
+    model of each set too."""
+    lit = torch.from_numpy(_sweep_rows(288, 3 + B)[:B])
+    off = torch.from_numpy(_sweep_rows(32, 4 + B)[-B:])
+    got = rc.optimize_for_rle_pair(lit, off)
+    assert et.optimize_for_rle_pair is rc.optimize_for_rle_pair
+    for g, rows in zip(got, (lit, off)):
+        _eq(rc.optimize_for_rle_plain(rows).numpy(), g, "pair against a plain call")
+        _eq(jax.jit(ej.optimize_for_rle_jax)(jnp.asarray(rows.numpy())), g, "pair against jax")
+        _eq(g.numpy(), rc.rle_sweep_model(rows)[0], "model")
 
 
 def _stats_lanes(L, seed):
@@ -444,4 +475,6 @@ def test_launch_counts_are_whole_under_threads():
     assert set(ops.launch_counts()) == set(ops.KERNEL_NAMES)
     ops.reset_launch_counts()
     rc.optimize_for_rle(torch.from_numpy(_sweep_rows(32, 1)))
+    rc.optimize_for_rle_pair(torch.from_numpy(_sweep_rows(288, 1)),
+                             torch.from_numpy(_sweep_rows(32, 1)))
     assert all(v == 0 for v in ops.launch_counts().values())

@@ -48,6 +48,7 @@ from zultra_tpu_torch.ops import (
     nsv_torch,
     plan_cuda,
     programs,
+    rle_cuda,
     split_torch,
     staircase_torch,
     suffix_torch,
@@ -484,6 +485,7 @@ CAPTURED = {
     dp_cuda: ("varlen_tables", "prep_lanes", "run_dp"),
     plan_cuda: ("_lanes", "launch_prep_lanes", "_strided_i32", "launch_token_hist", "num_words",
                 "launch_emit_tokens", "launch_lex_order"),
+    rle_cuda: ("_check_counts", "optimize_for_rle", "optimize_for_rle_pair"),
     split_torch: ("split_batch", "split_program", "token_structure", "_take", "_put"),
     symbol_map: ("floor_log2", "matchlen_sym_extra_base", "offset_sym_extra_base",
                  "offset_index", "select_by_symbol"),

@@ -45,12 +45,12 @@ _SIGNATURES = {
     "zt_matchlen": [_VP, _LL, _VP, _VP, _VP, _LL, _VP],
     "zt_hist": [_VP, _LL, _LL, _LL, _VP, _I, _VP, _I, _VP],
     "zt_hist_blocks_per_sm": [],  # returns the blocks an SM holds, or -(CUDA error)
-    "zt_rle_sweep": [_VP, _VP, _I, _I, _VP],
+    "zt_rle_sweep": [_VP, _VP, _I, _I, _VP, _VP, _I, _I, _VP],
     "zt_rle_stats": [_VP] * 7 + [_I] * 5 + [_VP] + [_I] * 2 + [_VP],  # masks: a host int array
     "zt_prefix_tables": [_VP] * 7 + [_I] * 2 + [_VP],
     "zt_prep_lanes": [_VP] * 10 + [_I] * 2 + [_VP],
     "zt_token_hist": [_VP] * 6 + [_I] * 2 + [_LL] * 4 + [_VP],
-    "zt_emit_tokens": [_VP] * 11 + [_I] * 2 + [_LL, _VP],
+    "zt_emit_tokens": [_VP] * 10 + [_I] * 2 + [_LL, _VP],
     "zt_lex_order": [_VP, _VP, _I, _I, _VP],
 }
 

@@ -53,14 +53,30 @@
 //   adds its nonzero bins into the lane's rows with integer atomics
 //   (exact in any order); block 0 of a lane adds the EOD. The rows are
 //   made zero by the wrapper.
-// - emit_tokens: three launches. count: a block per (lane, chunk of TILE
-//   positions) sums its fields' bit widths; scan: a block per lane scans
-//   the chunk sums into each chunk's first bit and writes the total and
-//   the EOD field; write: a block per chunk scans its positions' widths
-//   (a block-wide scan per 256 positions) and adds each field's one or
-//   two 32-bit pieces into the zeroed words with 64-bit atomics. Fields
-//   never overlap, so the adds are ORs; where they would, the words sum
-//   as the plain form's scatter_add sums.
+// - emit_tokens: one launch, a block per tile of EMIT_TILE (2048)
+//   positions of a lane, 8 a thread, so that each position is read and
+//   decoded once, a thread's loads are wide and all in flight together,
+//   and each word is stored whole rather than added into piece by piece
+//   (a token is 8-28 bits, so neighbouring threads' pieces meet in one
+//   word and global atomics on it serialise). A block takes its tile from
+//   an atomic ticket (lane-major, so a tile waits only on tiles whose
+//   blocks are already resident); a thread loads its 8 positions at once
+//   (one 8-byte load of bytes and of marks, two 16-byte loads of lengths
+//   and of offsets) and computes each field once; one block scan gives
+//   each thread its first bit in the tile; the tile publishes its bit count
+//   at once and one warp finds the tile's first bit in the lane by a
+//   decoupled look-back over the lane's tiles (64-bit status words, flag
+//   and count: the tile's own bits, or the lane's bits to its end), exact
+//   in any order of completion, while the other warps OR the fields into
+//   the tile's words in shared memory (a shared atomic only on a thread's
+//   first and last word). The tile then stores its words whole,
+//   coalesced, shifted to the lane's bit alignment by a funnel shift; only
+//   its first and last words, which a neighbouring tile or the EOD may
+//   share, take a global atomicOr. The lane's last tile writes the total
+//   and the EOD field. The words, the status words and the ticket are one
+//   buffer that the C entry zeroes (one memset a call, on the stream), so
+//   the words past the lane's total are zero. A field's value fits its bits (codes below
+//   2^length, DEFLATE's extra bits), so OR equals the plain form's adds.
 // - lex_order: for S <= 32 a warp a row ranks by count (the keys in
 //   registers, read back by shuffles): key i goes to #{j: k_j < k_i} +
 //   #{j < i: k_j == k_i}. Above 32, a bitonic sorting network on unique
@@ -88,7 +104,7 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int TILE = 4096;  // positions a block of prep_lanes and emit_tokens
+constexpr int TILE = 4096;  // positions a block of prep_lanes
 constexpr int SLOTS = 8;    // match slots a position
 constexpr int NLIT = 288;   // literal/length symbols
 constexpr int NOFF = 32;    // offset symbols
@@ -303,6 +319,18 @@ __global__ void __launch_bounds__(HIST_THREADS)
 // K13: token emission
 // ---------------------------------------------------------------------------
 
+constexpr int EMIT_THREADS = THREADS;
+constexpr int EMIT_PER = 8;                         // positions a thread
+constexpr int EMIT_TILE = EMIT_THREADS * EMIT_PER;  // positions a block
+// A position's two fields hold at most 48 bits (codes of at most 15 bits,
+// extra bits of at most 5 and 13), so a tile's bits fit EMIT_WORDS words.
+constexpr int FIELD_BITS = 48;
+constexpr int EMIT_WORDS = EMIT_TILE * FIELD_BITS / 32 + 1;
+// A tile's status word: the flag in the top two bits, a bit count below.
+constexpr unsigned long long ST_AGGREGATE = 1ull << 62;  // the tile's own bits
+constexpr unsigned long long ST_PREFIX = 2ull << 62;     // the lane's bits to the tile's end
+constexpr unsigned long long ST_VALUE = (1ull << 62) - 1;
+
 struct Codes {
   int lit_cw[NLIT], lit_len[NLIT], off_cw[NOFF], off_len[NOFF];
 };
@@ -352,25 +380,6 @@ __device__ __forceinline__ Fields position_fields(const Codes& c, int tok, int b
   return f;
 }
 
-// Add a field of `bits` bits at bit offset `at` into the words, as the
-// plain form's two scatter_adds: the low piece at word at >> 5, the high
-// piece at the next word where the field starts inside a word; pieces past
-// the last word are dropped.
-__device__ __forceinline__ void put_field(unsigned long long* words, long long value, int bits,
-                                          long long at, long long num_words) {
-  if (bits <= 0) return;
-  const long long w = at >> 5;
-  const int sh = (int)(at & 31);
-  if (w < num_words) {
-    const long long lo = (long long)((unsigned long long)value << sh) & 0xFFFFFFFFll;
-    if (lo) atomicAdd(&words[w], (unsigned long long)lo);
-  }
-  if (sh > 0 && w + 1 < num_words) {
-    const long long hi = value >> (32 - sh);
-    if (hi) atomicAdd(&words[w + 1], (unsigned long long)hi);
-  }
-}
-
 // Block-wide inclusive scan of one int a thread (THREADS threads); also
 // returns the block's total through `total`.
 __device__ __forceinline__ int block_scan(int x, int* warp_sums, int& total) {
@@ -390,110 +399,194 @@ __device__ __forceinline__ int block_scan(int x, int* warp_sums, int& total) {
     if (w < warp) before += s;
     total += s;
   }
-  __syncthreads();  // warp_sums is reused by the next call
   return x + before;
 }
 
-__global__ void __launch_bounds__(THREADS)
-    emit_tokens_count_kernel(const uint8_t* __restrict__ window,
-                             const int32_t* __restrict__ best_len,
-                             const int32_t* __restrict__ best_off,
-                             const uint8_t* __restrict__ is_tok, const int32_t* __restrict__ lit_cw,
-                             const int32_t* __restrict__ lit_len,
-                             const int32_t* __restrict__ off_cw,
-                             const int32_t* __restrict__ off_len,
-                             long long* __restrict__ chunk_bits, int n, int n_chunks) {
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// The lane's bits before its tile j >= 1 (`row`: the lane's status words),
+// by one warp: in each round lane l reads tile k - l, the warp waits until
+// all 32 have published, then sums back to the nearest prefix; without
+// one, the next round starts 32 tiles further back. Tile 0 publishes its
+// prefix at once, so the walk ends there at the latest.
+__device__ __forceinline__ long long look_back(const unsigned long long* row, int j) {
+  const int lane = threadIdx.x & 31;
+  long long before = 0;
+  for (int k = j - 1;; k -= 32) {
+    const int at = k - lane;
+    unsigned long long st = at >= 0 ? load_status(row + at) : ST_PREFIX;
+    while (__any_sync(FULL, (st >> 62) == 0)) {
+      if ((st >> 62) == 0) st = load_status(row + at);
+    }
+    const unsigned prefix = __ballot_sync(FULL, (st >> 62) == 2);
+    const int stop = prefix ? __ffs(prefix) - 1 : 31;
+    long long v = lane <= stop ? (long long)(st & ST_VALUE) : 0;
+#pragma unroll
+    for (int d = 16; d; d >>= 1) v += __shfl_xor_sync(FULL, v, d);
+    before += v;
+    if (prefix) return before;
+  }
+}
+
+// OR the low 32 bits of `v` into the 64-bit word, where it holds any.
+__device__ __forceinline__ void or_word(unsigned long long* w, unsigned long long v) {
+  if (v & 0xFFFFFFFFull) atomicOr(w, v & 0xFFFFFFFFull);
+}
+
+// One launch a call. A block takes the tile its ticket names (tickets in
+// lane-major order: a tile waits only on tiles whose blocks took a ticket
+// before it, so never on one that is not resident). WIDE: n % EMIT_PER ==
+// 0 and the rows aligned, so a thread's positions come in one 8-byte load
+// of bytes and of marks and two 16-byte loads of lengths and of offsets.
+// `words` and `status` are zero on entry, `ticket` too.
+template <bool WIDE>
+__global__ void __launch_bounds__(EMIT_THREADS)
+    emit_tokens_kernel(const uint8_t* __restrict__ window, const int32_t* __restrict__ best_len,
+                       const int32_t* __restrict__ best_off, const uint8_t* __restrict__ is_tok,
+                       const int32_t* __restrict__ lit_cw, const int32_t* __restrict__ lit_len,
+                       const int32_t* __restrict__ off_cw, const int32_t* __restrict__ off_len,
+                       unsigned long long* __restrict__ words, int32_t* __restrict__ total_bits,
+                       unsigned long long* status, unsigned* ticket, int n, int tiles,
+                       long long num_words) {
   __shared__ Codes c;
-  __shared__ int warp_sums[THREADS / 32];
-  const int b = blockIdx.y, tid = threadIdx.x;
-  load_codes(c, lit_cw, lit_len, off_cw, off_len, b);
+  __shared__ unsigned buf[EMIT_WORDS];  // the tile's bits, bit 0 its first
+  __shared__ int warp_sums[EMIT_THREADS / 32];
+  __shared__ int s_tile;
+  __shared__ long long s_first;  // the tile's first bit in the lane
+  const int tid = threadIdx.x;
+  if (tid == 0) s_tile = (int)atomicAdd(ticket, 1u);
+  for (int i = tid; i < EMIT_WORDS; i += EMIT_THREADS) buf[i] = 0;
   __syncthreads();
-  const int p0 = blockIdx.x * TILE;
-  const int p_end = min(p0 + TILE, n);
-  long long sum = 0;
-  for (int p = p0 + tid; p < p_end; p += THREADS) {
-    const size_t at = (size_t)b * n + p;
-    const Fields f = position_fields(c, is_tok[at], best_len[at], best_off[at], window[at]);
+  const int b = s_tile / tiles, j = s_tile % tiles;
+  const int p0 = j * EMIT_TILE + tid * EMIT_PER;
+  const size_t row = (size_t)b * n;
+  unsigned wb[2] = {0, 0}, mk[2] = {0, 0};  // four bytes a word
+  int ln[EMIT_PER], of[EMIT_PER];
+  if (WIDE) {
+    if (p0 < n) {
+      const uint2 w = *reinterpret_cast<const uint2*>(window + row + p0);
+      const uint2 m = *reinterpret_cast<const uint2*>(is_tok + row + p0);
+      const int4 l0 = *reinterpret_cast<const int4*>(best_len + row + p0);
+      const int4 l1 = *reinterpret_cast<const int4*>(best_len + row + p0 + 4);
+      const int4 o0 = *reinterpret_cast<const int4*>(best_off + row + p0);
+      const int4 o1 = *reinterpret_cast<const int4*>(best_off + row + p0 + 4);
+      wb[0] = w.x, wb[1] = w.y, mk[0] = m.x, mk[1] = m.y;
+      ln[0] = l0.x, ln[1] = l0.y, ln[2] = l0.z, ln[3] = l0.w;
+      ln[4] = l1.x, ln[5] = l1.y, ln[6] = l1.z, ln[7] = l1.w;
+      of[0] = o0.x, of[1] = o0.y, of[2] = o0.z, of[3] = o0.w;
+      of[4] = o1.x, of[5] = o1.y, of[6] = o1.z, of[7] = o1.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < EMIT_PER; ++e) ln[e] = of[e] = 0;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < EMIT_PER; ++e) {
+      const int p = p0 + e;
+      const bool in = p < n;
+      wb[e >> 2] |= (in ? (unsigned)window[row + p] : 0u) << (8 * (e & 3));
+      mk[e >> 2] |= (in ? (unsigned)is_tok[row + p] : 0u) << (8 * (e & 3));
+      ln[e] = in ? best_len[row + p] : 0;
+      of[e] = in ? best_off[row + p] : 0;
+    }
+  }
+  load_codes(c, lit_cw, lit_len, off_cw, off_len, b);  // after the positions' loads are issued
+  __syncthreads();  // the codes
+
+  // Each field once, in stream order; a field of no bits holds nothing.
+  unsigned val[2 * EMIT_PER];
+  int nb[2 * EMIT_PER];
+  int sum = 0;
+#pragma unroll
+  for (int e = 0; e < EMIT_PER; ++e) {
+    const int sh = 8 * (e & 3);
+    const Fields f = position_fields(c, (mk[e >> 2] >> sh) & 0xFF, ln[e], of[e],
+                                     (wb[e >> 2] >> sh) & 0xFF);
+    val[2 * e] = f.n1 > 0 ? (unsigned)f.v1 : 0u;
+    val[2 * e + 1] = f.n2 > 0 ? (unsigned)f.v2 : 0u;
+    nb[2 * e] = f.n1;
+    nb[2 * e + 1] = f.n2;
     sum += f.n1 + f.n2;
   }
-  // A chunk's widths fit an int: TILE positions of two fields of at most
-  // 15 + 13 code and extra bits each.
-  int total;
-  block_scan((int)sum, warp_sums, total);
-  if (tid == 0) chunk_bits[(size_t)b * n_chunks + blockIdx.x] = total;
-}
-
-__global__ void __launch_bounds__(THREADS)
-    emit_tokens_scan_kernel(long long* __restrict__ chunk_bits,
-                            const int32_t* __restrict__ lit_cw,
-                            const int32_t* __restrict__ lit_len,
-                            unsigned long long* __restrict__ words,
-                            int32_t* __restrict__ total_bits, int n_chunks, long long num_words) {
-  __shared__ long long warp_sums[THREADS / 32];
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  long long* row = chunk_bits + (size_t)b * n_chunks;
-  long long carry = 0;
-  for (int c0 = 0; c0 < n_chunks; c0 += THREADS) {
-    const int i = c0 + tid;
-    const long long v = i < n_chunks ? row[i] : 0;
-    long long x = v;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const long long y = __shfl_up_sync(FULL, x, d);
-      if (lane >= d) x += y;
-    }
-    if (lane == 31) warp_sums[warp] = x;
-    __syncthreads();
-    long long before = 0, total = 0;
-    for (int w = 0; w < THREADS / 32; ++w) {
-      if (w < warp) before += warp_sums[w];
-      total += warp_sums[w];
-    }
-    if (i < n_chunks) row[i] = carry + before + x - v;  // the chunk's first bit
-    carry += total;
-    __syncthreads();
-  }
+  int agg;  // the tile's bits
+  const int first = block_scan(sum, warp_sums, agg) - sum;  // this thread's first, in the tile
+  unsigned long long* lane_status = status + (size_t)b * tiles;
   if (tid == 0) {
-    const int eod_bits = lit_len[(size_t)b * NLIT + EOD];
-    total_bits[b] = (int32_t)(carry + eod_bits);
-    put_field(words + (size_t)b * num_words, lit_cw[(size_t)b * NLIT + EOD], eod_bits, carry,
-              num_words);
+    store_status(lane_status + j, (j == 0 ? ST_PREFIX : ST_AGGREGATE) | (unsigned long long)agg);
   }
-}
-
-__global__ void __launch_bounds__(THREADS)
-    emit_tokens_write_kernel(const uint8_t* __restrict__ window,
-                             const int32_t* __restrict__ best_len,
-                             const int32_t* __restrict__ best_off,
-                             const uint8_t* __restrict__ is_tok, const int32_t* __restrict__ lit_cw,
-                             const int32_t* __restrict__ lit_len,
-                             const int32_t* __restrict__ off_cw,
-                             const int32_t* __restrict__ off_len,
-                             const long long* __restrict__ chunk_bits,
-                             unsigned long long* __restrict__ words, int n, int n_chunks,
-                             long long num_words) {
-  __shared__ Codes c;
-  __shared__ int warp_sums[THREADS / 32];
-  const int b = blockIdx.y, tid = threadIdx.x;
-  load_codes(c, lit_cw, lit_len, off_cw, off_len, b);
-  __syncthreads();
-  unsigned long long* out = words + (size_t)b * num_words;
-  const int p0 = blockIdx.x * TILE;
-  const int p_end = min(p0 + TILE, n);
-  long long carry = chunk_bits[(size_t)b * n_chunks + blockIdx.x];
-  for (int q = p0; q < p_end; q += THREADS) {  // uniform over the block
-    const int p = q + tid;
-    Fields f = {0, 0, 0, 0};
-    if (p < p_end) {
-      const size_t at = (size_t)b * n + p;
-      f = position_fields(c, is_tok[at], best_len[at], best_off[at], window[at]);
+  if (tid < 32) {  // warp 0: the tile's first bit in the lane, the lane's end
+    const long long before = j == 0 ? 0 : look_back(lane_status, j);
+    if (tid == 0) {
+      s_first = before;
+      if (j > 0) store_status(lane_status + j, ST_PREFIX | (unsigned long long)(before + agg));
+      if (j == tiles - 1) {
+        const long long end = before + agg;
+        const int eod_bits = c.lit_len[EOD];
+        total_bits[b] = (int32_t)(end + eod_bits);
+        if (eod_bits > 0) {
+          unsigned long long* out = words + (size_t)b * num_words;
+          const long long v = c.lit_cw[EOD], w = end >> 5;
+          const int sh = (int)(end & 31);
+          if (w < num_words) or_word(out + w, (unsigned long long)v << sh);
+          if (sh > 0 && w + 1 < num_words) or_word(out + w + 1, (unsigned long long)(v >> (32 - sh)));
+        }
+      }
     }
-    int total;
-    const int incl = block_scan(f.n1 + f.n2, warp_sums, total);
-    const long long at1 = carry + incl - (f.n1 + f.n2);
-    put_field(out, f.v1, f.n1, at1, num_words);
-    put_field(out, f.v2, f.n2, at1 + f.n1, num_words);
-    carry += total;
+  }
+
+  // The fields into the tile's words: a thread's first and last words may
+  // hold another thread's bits (shared atomics), the words between are its
+  // own (stores).
+  {
+    int w = first >> 5, fill = first & 31;
+    unsigned long long acc = 0;  // bits from word w on
+    bool own = false;            // word w starts inside this thread's bits
+#pragma unroll
+    for (int f = 0; f < 2 * EMIT_PER; ++f) {
+      acc |= (unsigned long long)val[f] << fill;
+      fill += nb[f];
+      while (fill >= 32) {
+        if (w < EMIT_WORDS) {
+          if (own) buf[w] = (unsigned)acc;
+          else if ((unsigned)acc) atomicOr(&buf[w], (unsigned)acc);
+        }
+        own = true;
+        acc >>= 32;
+        fill -= 32;
+        ++w;
+      }
+    }
+    if ((unsigned)acc && w < EMIT_WORDS) atomicOr(&buf[w], (unsigned)acc);
+  }
+  __syncthreads();  // the words, s_first
+
+  // The tile's words in the lane, whole: global word g holds tile bits
+  // [32 g - first, 32 g - first + 32). Its first and last words may hold a
+  // neighbour's bits (or the EOD): OR'ed; the rest stored.
+  if (agg > 0) {
+    const long long s = s_first, g0 = s >> 5, g1 = (s + agg - 1) >> 5;
+    const int sh = (int)(s & 31);
+    const bool shared_tail = ((s + agg) & 31) != 0;
+    unsigned long long* out = words + (size_t)b * num_words;
+    for (long long g = g0 + tid; g <= g1 && g < num_words; g += EMIT_THREADS) {
+      const int k = (int)(g - g0);
+      const unsigned hi = k < EMIT_WORDS ? buf[k] : 0u;
+      const unsigned lo = k > 0 && k - 1 < EMIT_WORDS ? buf[k - 1] : 0u;
+      const unsigned v = __funnelshift_l(lo, hi, sh);
+      if ((k == 0 && sh != 0) || (g == g1 && shared_tail)) {
+        or_word(out + g, v);
+      } else {
+        out[g] = v;
+      }
+    }
   }
 }
 
@@ -666,34 +759,34 @@ extern "C" int zt_token_hist(const void* window, const void* lens, const void* o
   return (int)cudaGetLastError();
 }
 
-// chunk_bits: B * ceil(n / TILE) int64 of scratch; words (B, num_words)
-// int64, zero on entry.
+// scratch: B * num_words + B * ceil(n / EMIT_TILE) + 1 int64, the words
+// (B, num_words), the tiles' status words and the ticket, zeroed here by
+// one memset on the stream before the launch.
 extern "C" int zt_emit_tokens(const void* window, const void* best_len, const void* best_off,
                               const void* is_tok, const void* lit_cw, const void* lit_len,
-                              const void* off_cw, const void* off_len, void* chunk_bits,
-                              void* words, void* total_bits, int B, int n, long long num_words,
+                              const void* off_cw, const void* off_len, void* scratch,
+                              void* total_bits, int B, int n, long long num_words,
                               void* stream) {
-  if (B < 0 || n < 1 || B > 65535 || num_words < 1) return (int)cudaErrorInvalidValue;
+  if (B < 0 || n < 1 || num_words < 1) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
+  const int tiles = (n + EMIT_TILE - 1) / EMIT_TILE;
+  if ((long long)B * tiles > 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int n_chunks = (n + TILE - 1) / TILE;
-  const dim3 grid(n_chunks, B);
-  emit_tokens_count_kernel<<<grid, THREADS, 0, st>>>(
+  unsigned long long* words = (unsigned long long*)scratch;
+  unsigned long long* status = words + (size_t)B * num_words;
+  unsigned* ticket = (unsigned*)(status + (size_t)B * tiles);
+  const cudaError_t err = cudaMemsetAsync(
+      scratch, 0, ((size_t)B * num_words + (size_t)B * tiles + 1) * sizeof(long long), st);
+  if (err != cudaSuccess) return (int)err;
+  const bool wide = n % EMIT_PER == 0 && (uintptr_t)window % 8 == 0 &&
+                    (uintptr_t)is_tok % 8 == 0 && (uintptr_t)best_len % 16 == 0 &&
+                    (uintptr_t)best_off % 16 == 0;
+  auto kernel = wide ? emit_tokens_kernel<true> : emit_tokens_kernel<false>;
+  kernel<<<(unsigned)(B * tiles), EMIT_THREADS, 0, st>>>(
       (const uint8_t*)window, (const int32_t*)best_len, (const int32_t*)best_off,
       (const uint8_t*)is_tok, (const int32_t*)lit_cw, (const int32_t*)lit_len,
-      (const int32_t*)off_cw, (const int32_t*)off_len, (long long*)chunk_bits, n, n_chunks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  emit_tokens_scan_kernel<<<B, THREADS, 0, st>>>(
-      (long long*)chunk_bits, (const int32_t*)lit_cw, (const int32_t*)lit_len,
-      (unsigned long long*)words, (int32_t*)total_bits, n_chunks, num_words);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  emit_tokens_write_kernel<<<grid, THREADS, 0, st>>>(
-      (const uint8_t*)window, (const int32_t*)best_len, (const int32_t*)best_off,
-      (const uint8_t*)is_tok, (const int32_t*)lit_cw, (const int32_t*)lit_len,
-      (const int32_t*)off_cw, (const int32_t*)off_len, (const long long*)chunk_bits,
-      (unsigned long long*)words, n, n_chunks, num_words);
+      (const int32_t*)off_cw, (const int32_t*)off_len, words, (int32_t*)total_bits, status,
+      ticket, n, tiles, num_words);
   return (int)cudaGetLastError();
 }
 

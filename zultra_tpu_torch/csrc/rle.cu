@@ -16,21 +16,45 @@
 // What bounds them on the card: neither bytes nor arithmetic. A row is at
 // most 1,280 bytes; the sweep is a dependent chain of up to 321 steps, the
 // statistics a few dozen operations a run. On the path the launch, one
-// load's latency and, for the sweep, the one thread's chain are the call.
+// load's latency and, for the sweep, the chain are the call. Taken a step
+// at a time, the sweep's chain costs several dependent operations a step,
+// and a row's ten words of parallel work (run starts, limits, sums,
+// segments) on one warp cost as much again: a warp a row took 8.2-8.7 us
+// a row of 288 on an H100 (PERF.md).
 //
 // What the design does about it:
-// - A warp a row, every row of the call in one launch (the plain form makes
-//   about ten launches a step of the sweep, and the statistics a chain of
-//   small ops a mask).
-// - The parallel parts run warp-wide on registers and shared memory: run
-//   starts by ballot (word k of the ballots holds positions 32k..32k+31),
-//   each position's run from the starts around it, good-for-RLE and the
-//   four-wide limits for every position at once.
-// - The sweep runs on lane 0 with (stride, limit, total) in registers. It
-//   reads only the original counts: a write decided at step i covers
-//   [i - stride, i), behind the cursor, so lane 0 only records the
-//   segments and the warp writes them after the sweep. It stops at eff: a
-//   step past eff changes nothing.
+// - Every row of the call in one launch (the plain form makes about ten
+//   launches a step of the sweep, and the statistics a chain of small ops
+//   a mask); the sweep takes both row sets of a planner call (the
+//   literal/length and the offset histograms) in one grid. The
+//   statistics take a warp a row; the sweep a warp for each word of 32
+//   counts (a block a row of 288, ten rows of 32 a block), the words of a
+//   row meeting in shared memory.
+// - The sweep's parallel parts run on each word's warp: run starts by
+//   ballot, each position's run from the nearest starts (in its word by a
+//   bit search, else from the other words' ballots), good-for-RLE, each
+//   step's inputs (the count, the limit a boundary there sets) and the
+//   prefix sums of the counts.
+// - The chain carries the limit alone: a boundary at i is good[i] or
+//   |c[i] - limit| >= 4 and sets the limit to step i's; stride and total
+//   only matter at boundaries and follow from them. Since a boundary's
+//   limit is step i's own, the boundaries after one inside its word do
+//   not depend on the limit the word was entered with: every lane finds
+//   the next boundary after itself (32 tests, broadcast loads of the
+//   word's counts) and the path of boundaries from itself on (pointer
+//   doubling, five shuffle rounds), every word on its own warp. What
+//   stays serial is a word's entry, on the row's first warp with every
+//   word's inputs in registers: a test a lane under the entering limit, a
+//   ballot, the path from the lowest hit by a shuffle, the limit of its
+//   last lane by another: about ten dependent operations a word in place
+//   of 32 steps of four. It stops at eff: a step past eff changes
+//   nothing.
+// - Then every position finds its segment [s, e) between the boundaries
+//   around it (0 and eff at the ends), its total as a difference of the
+//   wrapping prefix sums (equal to the chain of wrapping adds), and is
+//   rewritten to the segment's mean when the segment is written. Every
+//   decision reads the original counts, as the reference's writes land
+//   behind its cursor.
 // - The statistics take the code lengths themselves (lit_len, off_len) and
 //   concatenate them in registers: n_lit and n_off by warp-wide max
 //   reductions, off moved into place by one shuffle a word. A lane's runs
@@ -57,8 +81,6 @@ namespace {
 constexpr int WARP = 32;
 constexpr int MAX_L = 320;
 constexpr int WORDS = MAX_L / WARP;      // ballot words of a row
-constexpr int ROWS = 4;                  // warps (rows) a block
-constexpr int MAX_SEGS = MAX_L / 3 + 2;  // a written segment spans >= 3 positions
 constexpr int MAX_MASKS = 32;
 constexpr int NCL = 19;                  // CL alphabet
 constexpr unsigned FULL = 0xFFFFFFFFu;
@@ -76,129 +98,197 @@ __device__ __forceinline__ int wrap_add(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
 }
 
-// The highest start at or below i, from the ballot words (-1 if none).
-__device__ __forceinline__ int prev_start(const unsigned* words, int i) {
-  int k = i / WARP;
-  const int lane = i % WARP;
-  unsigned m = words[k] & (lane == WARP - 1 ? FULL : ((2u << lane) - 1u));
-  while (m == 0 && k > 0) m = words[--k];
-  return m ? k * WARP + 31 - __clz(m) : -1;
+// |a - b| in int32 arithmetic, which wraps (|INT32_MIN| stays negative).
+__device__ __forceinline__ int wrap_dist(int a, int b) {
+  const unsigned d = (unsigned)a - (unsigned)b;
+  return (int)d < 0 ? (int)(0u - d) : (int)d;
 }
 
-// The lowest start above i (-1 if none).
-__device__ __forceinline__ int next_start(const unsigned* words, int i, int n_words) {
-  int k = i / WARP;
-  const int lane = i % WARP;
-  unsigned m = lane == WARP - 1 ? 0u : words[k] & ~((2u << lane) - 1u);
-  while (m == 0 && k + 1 < n_words) m = words[++k];
-  return m ? k * WARP + __ffs(m) - 1 : -1;
+// Lanes 0..lane of a ballot word.
+__device__ __forceinline__ unsigned at_or_below(int lane) {
+  return lane == WARP - 1 ? FULL : (2u << lane) - 1u;
 }
 
-// Ballot words of the run starts among positions < n of row `v` (the row
-// also in shared memory, `row`): position 0, or a value other than the one
-// before it.
-__device__ __forceinline__ void start_words(const int* row, const int (&v)[WORDS], int n,
-                                            unsigned* words, int lane) {
+// The nearest set position at or below 32 k + lane, and above it.
+__device__ __forceinline__ int set_at_or_below(unsigned m, int k, int lane, int below) {
+  const unsigned x = m & at_or_below(lane);
+  return x ? WARP * k + 31 - __clz(x) : below;
+}
+
+__device__ __forceinline__ int set_above(unsigned m, int k, int lane, int above) {
+  const unsigned x = m & ~at_or_below(lane);
+  return x ? WARP * k + __ffs(x) - 1 : above;
+}
+
+constexpr int SWEEP_WARPS = WORDS;  // warps a block: a row takes a warp a word of 32 counts
+
+// The rows of two sets (a: Ba rows of La, b: Bb rows of Lb) in one grid,
+// set a's blocks first. A row of L counts takes R = ceil(L / 32) warps,
+// warp w of the row holding positions 32 w .. 32 w + 31, a position in
+// its lane; a block holds SWEEP_WARPS / R rows of one set. Shared arrays
+// are indexed by the position in the block, 32 * warp + lane, so a row's
+// positions are contiguous from its first warp's.
+__global__ void __launch_bounds__(SWEEP_WARPS * WARP)
+    rle_sweep_kernel(const int32_t* __restrict__ ca, int32_t* __restrict__ oa, int Ba, int La,
+                     const int32_t* __restrict__ cb, int32_t* __restrict__ ob, int Bb, int Lb) {
+  __shared__ int c_s[MAX_L];       // the counts
+  __shared__ int lim_s[MAX_L];     // the limit a boundary at each position sets
+  __shared__ int pre_s[MAX_L];     // sum of the row's counts before each position, wrapping
+  __shared__ unsigned path_s[MAX_L];  // the boundaries from each position on, in its word
+  __shared__ int eff_s[SWEEP_WARPS], sum_s[SWEEP_WARPS], total_s[SWEEP_WARPS];
+  __shared__ unsigned start_s[SWEEP_WARPS], good_s[SWEEP_WARPS], bnd_s[SWEEP_WARPS];
+  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const int Ra = (La + WARP - 1) / WARP, blocks_a = (Ba + SWEEP_WARPS / Ra - 1) / (SWEEP_WARPS / Ra);
+  const bool in_a = (int)blockIdx.x < blocks_a;
+  const int L = in_a ? La : Lb, R = (L + WARP - 1) / WARP, per_block = SWEEP_WARPS / R;
+  const int slot = warp / R, word = warp % R;  // the block's row, the row's word
+  const int row = ((int)blockIdx.x - (in_a ? 0 : blocks_a)) * per_block + slot;
+  const bool active = slot < per_block && row < (in_a ? Ba : Bb);  // the same over the warp
+  const int first_warp = slot * R, base = WARP * first_warp;  // the row's first warp, position
+  const int i = WARP * word + lane, at = WARP * warp + lane;  // at == base + i
+  const size_t g = (size_t)row * L + i;
+
+  int v = active && i < L ? (in_a ? ca : cb)[g] : 0;
+  c_s[at] = v;
+  const int e = __reduce_max_sync(FULL, v != 0 ? i + 1 : 0);
+  if (lane == 0) eff_s[warp] = e;
+  __syncthreads();
+  int eff = 0;
+  for (int q = 0; active && q < R; ++q) eff = max(eff, eff_s[first_warp + q]);
+
+  // Run starts within eff (position 0, or a value other than the one
+  // before); each step's limit (the four-wide mean below eff - 3, else
+  // c[i]); the counts' sums over the word.
+  const bool starts = active && i < eff && (i == 0 || v != c_s[at - 1]);
+  const unsigned start = __ballot_sync(FULL, starts);
+  unsigned sum4 = (unsigned)v + 2u;
 #pragma unroll
-  for (int k = 0; k < WORDS; ++k) {
-    const int i = lane + WARP * k;
-    const bool s = i < n && (i == 0 || v[k] != row[i - 1]);
-    const unsigned b = __ballot_sync(FULL, s);
-    if (lane == 0) words[k] = b;
+  for (int d = 1; d <= 3; ++d) sum4 += i + d < L ? (unsigned)c_s[at + d] : 0u;
+  const int after = i < eff - 3 ? (int)sum4 >> 2 : v;  // >> 2: floor / 4
+  lim_s[at] = after;
+  unsigned x = (unsigned)v;
+#pragma unroll
+  for (int d = 1; d < WARP; d <<= 1) {
+    const unsigned y = __shfl_up_sync(FULL, x, d);
+    if (lane >= d) x += y;
   }
-  __syncwarp();
-}
+  if (lane == 0) start_s[warp] = start;
+  if (lane == WARP - 1) sum_s[warp] = (int)x;
+  __syncthreads();
 
-__global__ void __launch_bounds__(ROWS * WARP)
-    rle_sweep_kernel(const int32_t* __restrict__ counts, int32_t* __restrict__ out, int B,
-                     int L) {
-  __shared__ int c_s[ROWS][MAX_L + 4];
-  __shared__ int lim_s[ROWS][MAX_L];
-  __shared__ unsigned start_s[ROWS][WORDS];
-  __shared__ unsigned good_s[ROWS][WORDS];
-  __shared__ int seg_s[ROWS][MAX_SEGS][3];
-  const int warp = threadIdx.x / WARP;
-  const int lane = threadIdx.x % WARP;
-  const int row_id = blockIdx.x * ROWS + warp;
-  if (row_id >= B) return;  // the whole warp: no block-wide barrier below
-  int* c = c_s[warp];
-  const int32_t* g = counts + (size_t)row_id * L;
-
-  int v[WORDS];
-  int e = 0;
-#pragma unroll
-  for (int k = 0; k < WORDS; ++k) {
-    const int i = lane + WARP * k;
-    v[k] = i < L ? g[i] : 0;
-    c[i] = v[k];
-    if (v[k] != 0) e = i + 1;
+  // good_for_rle: a zero run of >= 5 or a nonzero run of >= 7, each
+  // position's run from the nearest starts (the other words' by their
+  // ballots); the prefix sums.
+  int s_below = 0, s_above = eff;
+  unsigned carry = 0;
+  for (int q = 0; active && q < R; ++q) {
+    const unsigned m = start_s[first_warp + q];
+    if (q < word && m) s_below = WARP * q + 31 - __clz(m);
+    if (q < word) carry += (unsigned)sum_s[first_warp + q];
   }
-  if (lane < 4) c[MAX_L + lane] = 0;
-  const int eff = __reduce_max_sync(FULL, e);
-  __syncwarp();
+  for (int q = R - 1; active && q > word; --q) {
+    const unsigned m = start_s[first_warp + q];
+    if (m) s_above = WARP * q + __ffs(m) - 1;
+  }
+  const int run = set_above(start, word, lane, s_above) - set_at_or_below(start, word, lane, s_below);
+  const unsigned good = __ballot_sync(FULL, active && i < eff && run >= (v == 0 ? 5 : 7));
+  pre_s[at] = (int)(carry + x - (unsigned)v);
+  if (lane == 0) good_s[warp] = good;
+  if (active && word == R - 1 && lane == WARP - 1) total_s[slot] = (int)(carry + x);
 
-  // Run starts within eff; good_for_rle: zero runs >= 5, nonzero >= 7.
-  start_words(c, v, eff, start_s[warp], lane);
-  const int n_words = (eff + WARP - 1) / WARP;
+  // The chain, a word of 32 steps at a time. A boundary at i is good[i]
+  // or |c[i] - limit| >= 4 (int32, wrapping as the plain form's abs), and
+  // sets the limit to step i's; so within a word the boundaries after a
+  // boundary at lane i follow from i alone: next_i, the first lane j > i
+  // that is a boundary under limit lim_i, found by 32 tests a lane, and
+  // path_i, the boundaries from i on, by pointer doubling over next (five
+  // rounds: at most 32 boundaries a word). Neither waits on the limit a
+  // word is entered with, and every word of the row runs on its own warp.
+  const int left = eff - WARP * word;
+  if (active && left > 0) {
+    const unsigned live = left >= WARP ? FULL : (1u << left) - 1u;
+    unsigned hits = 0;
 #pragma unroll
-  for (int k = 0; k < WORDS; ++k) {
-    const int i = lane + WARP * k;
-    bool good = false;
-    if (i < eff) {
-      const int s = prev_start(start_s[warp], i);
-      const int ns = next_start(start_s[warp], i, n_words);
-      const int run = (ns < 0 ? eff : ns) - s;
-      good = run >= (v[k] == 0 ? 5 : 7);
+    for (int j = 0; j < WARP; ++j) {
+      hits |= (unsigned)(wrap_dist(c_s[WARP * warp + j], after) >= 4) << j;
     }
-    const unsigned b = __ballot_sync(FULL, good);
-    if (lane == 0) good_s[warp][k] = b;
-    if (i < L) lim_s[warp][i] = floordiv(wrap_add(wrap_add(c[i], c[i + 1]),
-                                                  wrap_add(wrap_add(c[i + 2], c[i + 3]), 2)),
-                                         4);
+    hits = (hits | good) & live & ~at_or_below(lane);
+    int next = hits ? __ffs(hits) - 1 : WARP;
+    unsigned path = 1u << lane;
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+      const unsigned further = __shfl_sync(FULL, path, next % WARP);
+      const int then = __shfl_sync(FULL, next, next % WARP);
+      if (next < WARP) path |= further, next = then;
+    }
+    path_s[at] = path;
   }
-  __syncwarp();
+  __syncthreads();
 
-  // The sweep over i = 0..eff on lane 0: segments [i - stride, i).
-  int n_seg = 0;
-  if (lane == 0) {
-    const unsigned* good = good_s[warp];
-    const int* lim4 = lim_s[warp];
-    int stride = 0, limit = c[0], total = 0;
-    for (int i = 0; i <= eff; ++i) {
-      const bool inside = i < eff;
-      const int ci = c[i];
-      const bool gi = inside && ((good[i / WARP] >> (i % WARP)) & 1u);
-      if (!inside || gi || abs(ci - limit) >= 4) {
-        if (stride >= 4 || (stride >= 3 && total == 0)) {
-          const int val =
-              total == 0 ? 0 : max(floordiv(wrap_add(total, stride / 2), stride), 1);
-          seg_s[warp][n_seg][0] = i - stride;
-          seg_s[warp][n_seg][1] = i;
-          seg_s[warp][n_seg][2] = val;
-          ++n_seg;
+  // The words in order, on the row's first warp, every word's counts,
+  // good bits, paths and limits first loaded into registers: under the
+  // entering limit each lane tests its own step, the lowest that is a
+  // boundary starts the word's path, and the path's last lane sets the
+  // limit the next word is entered with.
+  if (active && word == 0) {
+    int cw[WORDS], lw[WORDS];
+    unsigned pw[WORDS], gw[WORDS];
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) {
+      const bool in = WARP * k < eff;
+      cw[k] = in ? c_s[base + WARP * k + lane] : 0;
+      lw[k] = in ? lim_s[base + WARP * k + lane] : 0;
+      pw[k] = in ? path_s[base + WARP * k + lane] : 0u;
+      gw[k] = in ? good_s[first_warp + k] : 0u;
+    }
+    int limit = __shfl_sync(FULL, cw[0], 0);
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) {
+      unsigned bits = 0;
+      if (WARP * k < eff) {
+        const bool hit = lane < eff - WARP * k &&
+                         (((gw[k] >> lane) & 1u) || wrap_dist(cw[k], limit) >= 4);
+        const unsigned first = __ballot_sync(FULL, hit);
+        bits = __shfl_sync(FULL, pw[k], first ? __ffs(first) - 1 : 0);
+        const int lim = __shfl_sync(FULL, lw[k], 31 - __clz(bits | 1u));
+        if (first) {
+          limit = lim;
+        } else {
+          bits = 0;
         }
-        limit = i < eff - 3 ? lim4[i] : (inside ? ci : 0);
-        stride = 0;
-        total = 0;
       }
-      ++stride;
-      if (inside) total = wrap_add(total, ci);
+      if (lane == 0 && k < R) bnd_s[first_warp + k] = bits;
     }
   }
-  n_seg = __shfl_sync(FULL, n_seg, 0);
-  __syncwarp();
+  __syncthreads();
 
-  // Rewrite the decided segments, then store the row.
-  for (int s = 0; s < n_seg; ++s) {
-    const int lo = seg_s[warp][s][0], hi = seg_s[warp][s][1], val = seg_s[warp][s][2];
-    for (int p = lo + lane; p < hi; p += WARP) c[p] = val;
-  }
-  __syncwarp();
-  int32_t* o = out + (size_t)row_id * L;
-#pragma unroll
-  for (int k = 0; k < WORDS; ++k) {
-    const int i = lane + WARP * k;
-    if (i < L) o[i] = c[i];
+  // The segments, every position at once: position i < eff lies in
+  // [s, e), s the last boundary at or below it (or 0), e the first above
+  // it (or eff); the segment is written when stride = e - s >= 4, or >= 3
+  // with a zero total, with its rounded mean (at least 1) or 0.
+  if (active && i < L) {
+    int out = v;
+    if (i < eff) {
+      int b_below = 0, b_above = eff;
+      for (int q = 0; q < word; ++q) {
+        const unsigned m = bnd_s[first_warp + q];
+        if (m) b_below = WARP * q + 31 - __clz(m);
+      }
+      for (int q = R - 1; q > word; --q) {
+        const unsigned m = bnd_s[first_warp + q];
+        if (m) b_above = WARP * q + __ffs(m) - 1;
+      }
+      const unsigned bw = bnd_s[warp];
+      const int s = set_at_or_below(bw, word, lane, b_below);
+      const int e2 = set_above(bw, word, lane, b_above);
+      const int stride = e2 - s;
+      const unsigned pe = e2 < WARP * R ? (unsigned)pre_s[base + e2] : (unsigned)total_s[slot];
+      const int total = (int)(pe - (unsigned)pre_s[base + s]);
+      if (stride >= 4 || (stride >= 3 && total == 0)) {
+        out = total == 0 ? 0 : max(floordiv(wrap_add(total, stride / 2), stride), 1);
+      }
+    }
+    (in_a ? oa : ob)[g] = out;
   }
 }
 
@@ -545,11 +635,20 @@ __global__ void __launch_bounds__(MASK_WARPS * WARP) rle_stats_masks_kernel(cons
 
 }  // namespace
 
-extern "C" int zt_rle_sweep(const void* counts, void* out, int B, int L, void* stream) {
-  if (L < 1 || L > MAX_L || B < 0) return (int)cudaErrorInvalidValue;
-  if (B > 0) {
-    rle_sweep_kernel<<<(B + ROWS - 1) / ROWS, ROWS * WARP, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)counts, (int32_t*)out, B, L);
+// Two sets of rows in one launch: Ba rows of La counts and Bb rows of Lb
+// (Bb 0 for one set).
+extern "C" int zt_rle_sweep(const void* ca, void* oa, int Ba, int La, const void* cb, void* ob,
+                            int Bb, int Lb, void* stream) {
+  if (Ba < 0 || Bb < 0 || La < 1 || La > MAX_L || (Bb > 0 && (Lb < 1 || Lb > MAX_L))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long per_a = SWEEP_WARPS / ((La + WARP - 1) / WARP);
+  const long long per_b = Bb > 0 ? SWEEP_WARPS / ((Lb + WARP - 1) / WARP) : 1;
+  const long long blocks = (Ba + per_a - 1) / per_a + (Bb + per_b - 1) / per_b;
+  if (blocks > 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
+  if (blocks > 0) {
+    rle_sweep_kernel<<<(unsigned)blocks, SWEEP_WARPS * WARP, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)ca, (int32_t*)oa, Ba, La, (const int32_t*)cb, (int32_t*)ob, Bb, Lb);
   }
   return (int)cudaGetLastError();
 }

@@ -40,7 +40,7 @@ from .entropy_torch import (
     dynamic_cost,
     dynamic_cost_given,
     mask_search,
-    optimize_for_rle,
+    optimize_for_rle_pair,
     static_cost,
 )
 from .symbol_map import (
@@ -149,8 +149,11 @@ def emit_tokens(window, best_len, best_off, lit_cw, lit_len, off_cw, off_len, is
     """Token emission at bit phase 0: every token's codeword (+ extra
     bits) packed LSB-first into 32-bit words, EOD last. Returns (words
     (B, n_words) int64 holding uint32 values, total_bits (B,) int32). A
-    CPU tensor takes the plain form; a CUDA tensor one call of the
-    ``emit_tokens`` kernel (three launches, ``plan_cuda``)."""
+    CPU tensor takes the plain form; a CUDA tensor one launch of the
+    ``emit_tokens`` kernel (``plan_cuda``). Every codeword must lie below
+    2^its length, as ``canonical_codewords`` and the static tables give
+    them: the kernel ORs each field into its words where the plain form
+    adds, and the two agree only on fields that fit their bits."""
     args = (window, best_len, best_off, lit_cw, lit_len, off_cw, off_len, is_tok)
     if window.device.type == "cpu":
         return emit_tokens_plain(*args)
@@ -240,8 +243,7 @@ def plan_block_core(window, mlens, moffs, length, greedy_tok=None):
 
     # Zopfli RLE histogram A/B test.
     cur_cost = dynamic_cost_given(f_lit, f_off, lit_len, off_len)
-    o_lit = optimize_for_rle(f_lit)
-    o_off = optimize_for_rle(f_off)
+    o_lit, o_off = optimize_for_rle_pair(f_lit, f_off)
     o_lit_len = build_lengths(o_lit, 15)
     o_off_len = build_lengths(o_off, 15)
     adopt = (dynamic_cost_given(o_lit, o_off, o_lit_len, o_off_len) < cur_cost)[:, None]

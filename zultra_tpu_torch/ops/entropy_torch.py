@@ -30,6 +30,7 @@ from .rle_cuda import (  # noqa: F401
     concat_lengths as _concat_lengths,
     defined_count,
     optimize_for_rle,
+    optimize_for_rle_pair,
     rle_bits_masks,
     rle_bits_tables,
     rle_histogram_masks,

@@ -18,11 +18,14 @@ tensor reaches the launches here or raises):
   adds its nonzero bins into the lane's rows with integer atomics.
 - K13 ``emit_tokens`` (``block_torch.emit_tokens``; JAX
   ``block_jax._emit_tokens``): every token's codeword and extra bits
-  packed LSB-first into words, EOD last. Three launches: count (each
-  chunk of TILE positions sums its fields' widths), scan (a block a lane:
-  each chunk's first bit, the total bits and the EOD field), write (each
-  chunk scans its positions, THREADS at a time, and adds every field's
-  one or two 32-bit pieces into the zeroed words with atomics).
+  packed LSB-first into words, EOD last. One launch: a block takes the
+  tile of EMIT_TILE positions its atomic ticket names, computes each
+  field once (EMIT_PER positions a thread), scans its threads' bits,
+  publishes the tile's bit count and finds its first bit in the lane by a
+  decoupled look-back over the lane's tiles, builds its words in shared
+  memory and stores them whole; the first and last word of a tile, which
+  a neighbour may share, are OR'ed. Words, status words and ticket are
+  one buffer, which the C entry zeroes by one memset a call.
 - K14 ``lex_order`` (``entropy_torch._lex_order``; the ``lax.sort((key,
   iota), num_keys=2)`` of ``entropy_jax``): the indices that sort each
   row by (key, index). S <= 32: a warp a row ranks by count (key i goes
@@ -35,8 +38,7 @@ tensor reaches the launches here or raises):
 Every launch runs on the current stream, allocates nothing and waits on
 nothing, so the planner's CUDA graph (``ops/programs.py``) records it;
 outputs and scratch come from torch. Each wrapper adds one to its
-kernel's launch count a call (``emit_tokens`` makes three launches a
-call, as ``dp`` does).
+kernel's launch count a call.
 
 The models (``*_model``) run each schedule in numpy on CPU tensors, with
 the kernels' closed-form symbol maps (floor(log2(x)) by the bit search
@@ -54,7 +56,10 @@ from .. import _build
 from . import count_launch
 
 THREADS = 256  # threads a block (csrc/plan.cu)
-TILE = 4096  # positions a block of the per-position kernels
+TILE = 4096  # positions a block of prep_lanes
+EMIT_PER = 8  # positions an emit_tokens thread
+EMIT_TILE = THREADS * EMIT_PER  # positions an emit_tokens block
+FIELD_BITS = 48  # a position's two fields at most (codes of <= 15 bits)
 SLOTS = 8  # match slots a position
 NLIT, NOFF, EOD = 288, 32, 256
 MIN_MATCH, LEAVE_ALONE = 3, 40
@@ -146,7 +151,10 @@ def num_words(n: int) -> int:
 
 def launch_emit_tokens(window, best_len, best_off, lit_cw, lit_len, off_cw, off_len, is_tok):
     """K13 on CUDA tensors: (words (B, num_words(n)) int64 holding uint32
-    values, total_bits (B,) int32)."""
+    values, total_bits (B,) int32). The words, the tiles' status words
+    and the ticket are one buffer, which the C entry zeroes: one memset
+    and one launch. The fields are OR'ed into the words, so each codeword
+    must lie below 2^its length (``block_torch.emit_tokens``)."""
     _build.check_cuda("emit_tokens window", window, U8, 2)
     _build.check_cuda("emit_tokens is_tok", is_tok, torch.bool, 2)
     B, n = window.shape
@@ -160,15 +168,13 @@ def launch_emit_tokens(window, best_len, best_off, lit_cw, lit_len, off_cw, off_
     if best_len.shape != (B, n) or best_off.shape != (B, n) or is_tok.shape != (B, n):
         raise ValueError("emit_tokens: inconsistent input shapes")
     _lanes("emit_tokens", B, n)
-    dev = window.device
     nw = num_words(n)
-    words = torch.zeros((B, nw), dtype=I64, device=dev)
-    total_bits = torch.empty((B,), dtype=I32, device=dev)
-    chunk_bits = torch.empty((B, -(-n // TILE)), dtype=I64, device=dev)
+    scratch = torch.empty(B * nw + B * -(-n // EMIT_TILE) + 1, dtype=I64, device=window.device)
+    total_bits = torch.empty((B,), dtype=I32, device=window.device)
     _build.launch("zt_emit_tokens", window.data_ptr(), best_len.data_ptr(), best_off.data_ptr(),
                   is_tok.data_ptr(), lit_cw.data_ptr(), lit_len.data_ptr(), off_cw.data_ptr(),
-                  off_len.data_ptr(), chunk_bits.data_ptr(), words.data_ptr(),
-                  total_bits.data_ptr(), B, n, nw)
+                  off_len.data_ptr(), scratch.data_ptr(), total_bits.data_ptr(), B, n, nw)
+    words = scratch[: B * nw].view(B, nw)
     count_launch("emit_tokens")
     return words, total_bits
 
@@ -393,66 +399,165 @@ def emit_fields(window, best_len, best_off, lit_cw, lit_len, off_cw, off_len, is
     return v1, n1, np.where(is_match, m2_v, 0), np.where(is_match, os_len + oe, 0)
 
 
-def _put(words, value, bits, at, writers, chunk, stats):
-    """csrc/plan.cu's ``put_field`` on one lane's Python-int words; records
-    which chunk wrote each word."""
-    if bits <= 0:
-        return
-    nw = len(words)
-    w, sh = at >> 5, at & 31
-    stats["straddle_word"] += int(sh > 0 and sh + bits > 32)
-    if w < nw:
-        words[w] += (value << sh) & 0xFFFFFFFF
-        writers.setdefault(w, set()).add(chunk)
-    if sh > 0 and w + 1 < nw:
-        words[w + 1] += value >> (32 - sh)
-        writers.setdefault(w + 1, set()).add(chunk)
+EMIT_COUNTERS = ("tiles", "lookback_rounds", "lookback_waits", "statuses_read",
+                 "unaligned_tiles", "shared_words", "thread_shared_words", "straddle_word")
+
+
+def _tile_words(vals, nbits, per_thread, n_words, stats):
+    """One tile's build in shared memory: each thread's first bit by an
+    exclusive scan of its fields' bits, then its fields OR'ed into words
+    whose bit 0 is the tile's first (the kernel's accumulator: a thread's
+    first and last word by shared atomics, the words between by stores,
+    each such word asserted to be the thread's alone) -> (words, the
+    tile's bits)."""
+    buf = [0] * n_words
+    owners = {}  # word -> threads that wrote it
+    widths = [int(nbits[i : i + 2 * per_thread].sum()) for i in range(0, len(nbits), 2 * per_thread)]
+    first = 0
+    for t, width in enumerate(widths):
+        w, fill, acc, own = first >> 5, first & 31, 0, False
+        for f in range(2 * per_thread * t, 2 * per_thread * (t + 1)):
+            bits = int(nbits[f])
+            stats["straddle_word"] += int(bits > 0 and (fill + bits - 1) >> 5 != fill >> 5)
+            acc |= int(vals[f]) << fill
+            fill += bits
+            while fill >= 32:
+                if own:
+                    assert buf[w] == 0 and w not in owners
+                    buf[w] = acc & 0xFFFFFFFF
+                elif acc & 0xFFFFFFFF:
+                    buf[w] |= acc & 0xFFFFFFFF
+                owners.setdefault(w, set()).add(t)
+                own = True
+                acc >>= 32
+                fill -= 32
+                w += 1
+        if acc & 0xFFFFFFFF:
+            buf[w] |= acc & 0xFFFFFFFF
+            owners.setdefault(w, set()).add(t)
+        first += width
+    stats["thread_shared_words"] += sum(len(o) > 1 for o in owners.values())
+    return buf, first
 
 
 def emit_tokens_model(window, best_len, best_off, lit_cw, lit_len, off_cw, off_len, is_tok,
-                      tile=TILE, threads=THREADS):
-    """K13's three launches: count (each chunk of ``tile`` positions sums
-    its widths), scan (each chunk's first bit from the sums before it,
-    then the total and the EOD field), write (each chunk walks its
-    positions ``threads`` at a time, an inclusive scan a step plus the
-    carry, and adds every field into the words) -> (words (B,
-    num_words(n)) int64, total_bits (B,) int32, counters: chunks, chunks
-    whose first bit is not on a word edge, fields that straddle a word
-    edge, words that two chunks (or a chunk and the EOD) add into)."""
+                      tile=EMIT_TILE, per_thread=EMIT_PER, order_seed=0, resident=8):
+    """K13's one launch. Blocks take tickets in lane-major order, at most
+    ``resident`` at a time, and a seeded scheduler runs their steps in a
+    random interleaving (the card's order of completion): (1) the tile's
+    fields, each thread's first bit, its words in shared memory
+    (``_tile_words``), its bit count published (lane's tile 0: as its
+    prefix); (2) the look-back, 32 statuses a round back to the nearest
+    prefix, a round that meets an unpublished status waiting (tried again
+    later), then the tile's prefix published and, on the lane's last
+    tile, the total and the EOD field OR'ed; (3) the tile's words stored
+    whole at the lane's alignment, its first and last word OR'ed (a
+    neighbour or the EOD may share them), every other word asserted to be
+    written by this tile alone. ``tile`` must be a multiple of
+    ``per_thread``. -> (words (B, num_words(n)) int64, total_bits (B,)
+    int32, counters over ``EMIT_COUNTERS``)."""
     arrs = _np(window, best_len, best_off, lit_cw, lit_len, off_cw, off_len, is_tok)
+    assert tile % per_thread == 0
     v1, n1, v2, n2 = emit_fields(*arrs)
     B, n = arrs[0].shape
     nw = num_words(n)
-    nc = -(-n // tile)
-    widths = n1 + n2
-    stats = dict.fromkeys(("chunks", "unaligned_chunks", "straddle_word", "shared_words"), 0)
-    words_out = np.zeros((B, nw), np.int64)
+    tiles = -(-n // tile)
+    # Fields in stream order: 2 p is position p's first field, 2 p + 1 its second.
+    nbits = np.stack([n1, n2], axis=2).reshape(B, 2 * n)
+    vals = np.where(nbits > 0, np.stack([v1, v2], axis=2).reshape(B, 2 * n), 0)
+    tile_words = tile * FIELD_BITS // 32 + 1
+    stats = dict.fromkeys(EMIT_COUNTERS, 0)
+    words = [[0] * nw for _ in range(B)]
+    writers = [{} for _ in range(B)]  # word -> tiles (the EOD as tile -1) that wrote it
+    status = [[None] * tiles for _ in range(B)]  # (is_prefix, bits)
     total = np.zeros(B, np.int64)
-    for b in range(B):
-        # count, then scan: each chunk's first bit.
-        sums = [int(widths[b, c * tile : (c + 1) * tile].sum()) for c in range(nc)]
-        first = [sum(sums[:c]) for c in range(nc)]
-        words, writers = [0] * nw, {}
-        for c in range(nc):  # write
-            stats["chunks"] += 1
-            stats["unaligned_chunks"] += int(first[c] % 32 != 0)
-            carry = first[c]
-            end = min((c + 1) * tile, n)
-            for q in range(c * tile, end, threads):
-                w_q = [int(x) for x in widths[b, q : min(q + threads, end)]]
-                incl = np.cumsum(w_q).tolist()
-                for i, p in enumerate(range(q, q + len(w_q))):
-                    at = carry + incl[i] - w_q[i]
-                    _put(words, int(v1[b, p]), int(n1[b, p]), at, writers, c, stats)
-                    _put(words, int(v2[b, p]), int(n2[b, p]), at + int(n1[b, p]), writers, c,
-                         stats)
-                carry += incl[-1]
-        eod_bits = int(arrs[4][b, EOD])
-        total[b] = sum(sums) + eod_bits
-        _put(words, int(arrs[3][b, EOD]), eod_bits, sum(sums), writers, nc, stats)
-        stats["shared_words"] += sum(len(s) > 1 for s in writers.values())
-        words_out[b] = [(x + 2**63) % 2**64 - 2**63 for x in words]  # int64 adds wrap
-    return torch.from_numpy(words_out), torch.from_numpy(_i32(total)), stats
+
+    def or_into(b, g, v, who):
+        if g < nw and v & 0xFFFFFFFF:
+            words[b][g] |= v & 0xFFFFFFFF
+            writers[b].setdefault(g, set()).add(who)
+
+    class Tile:
+        def __init__(self, ticket):
+            self.b, self.j = divmod(ticket, tiles)
+            self.step, self.k, self.before = 0, self.j - 1, 0
+
+        def advance(self):
+            b, j = self.b, self.j
+            if self.step == 0:
+                lo = 2 * j * tile
+                hi = min(lo + 2 * tile, 2 * n)
+                fv = np.zeros(2 * tile, np.int64)
+                fb = np.zeros(2 * tile, np.int64)
+                fv[: hi - lo], fb[: hi - lo] = vals[b, lo:hi], nbits[b, lo:hi]
+                self.buf, self.agg = _tile_words(fv, fb, per_thread, tile_words, stats)
+                status[b][j] = (j == 0, self.agg)
+                stats["tiles"] += 1
+                self.step = 1 if j > 0 else 2
+                if j == 0:
+                    self.publish()
+            elif self.step == 1:
+                window = [status[b][k] for k in range(self.k, max(self.k - 32, -1), -1)]
+                if any(st is None for st in window):
+                    stats["lookback_waits"] += 1
+                    return
+                stats["lookback_rounds"] += 1
+                stats["statuses_read"] += len(window)
+                for is_prefix, bits in window:
+                    self.before += bits
+                    if is_prefix:
+                        status[b][j] = (True, self.before + self.agg)
+                        self.publish()
+                        self.step = 2
+                        return
+                self.k -= 32
+            else:
+                self.store()
+                self.step = 3
+
+        def publish(self):
+            b, j = self.b, self.j
+            if j == tiles - 1:
+                end = self.before + self.agg
+                eod_bits = int(arrs[4][b, EOD])
+                total[b] = end + eod_bits
+                if eod_bits > 0:
+                    v = int(arrs[3][b, EOD])
+                    or_into(b, end >> 5, v << (end & 31), -1)
+                    if end & 31:
+                        or_into(b, (end >> 5) + 1, v >> (32 - (end & 31)), -1)
+
+        def store(self):
+            b, s, agg = self.b, self.before, self.agg
+            if agg == 0:
+                return
+            stats["unaligned_tiles"] += int(s % 32 != 0)
+            g0, g1, sh = s >> 5, (s + agg - 1) >> 5, s & 31
+            for g in range(g0, min(g1, nw - 1) + 1):
+                k = g - g0
+                both = (self.buf[k] << 32 | (self.buf[k - 1] if k else 0)) << sh
+                v = (both >> 32) & 0xFFFFFFFF
+                if (k == 0 and sh) or (g == g1 and (s + agg) % 32):
+                    or_into(b, g, v, self.j)
+                else:
+                    assert words[b][g] == 0 and g not in writers[b]
+                    words[b][g] = v
+                    writers[b][g] = {self.j}
+
+    rng = np.random.default_rng(order_seed)
+    n_tickets, next_ticket, live = B * tiles, 0, []
+    while next_ticket < n_tickets or live:
+        admit = int(next_ticket < n_tickets and len(live) < resident)
+        pick = int(rng.integers(0, len(live) + admit))
+        if pick == len(live):
+            live.append(Tile(next_ticket))
+            next_ticket += 1
+            continue
+        live[pick].advance()
+        if live[pick].step == 3:
+            live.pop(pick)
+    stats["shared_words"] = sum(len(w) > 1 for lane in writers for w in lane.values())
+    return (torch.tensor(words, dtype=I64).view(B, nw), torch.from_numpy(_i32(total)), stats)
 
 
 def _rank_order(k: np.ndarray) -> np.ndarray:

@@ -8,9 +8,16 @@ huffutils.c:34-114): a decision sweep over the ORIGINAL counts, then one
 rewrite of the decided segments. The JAX package runs the sweep as a
 ``lax.scan`` inside the planner's one compiled program; its plain form
 here is a Python loop of L + 1 steps of tensor ops. The ``rle_sweep``
-kernel runs a warp per row: the warp finds the good-for-RLE runs and the
-four-wide limits, lane 0 runs the sweep with its carry in registers, and
-the warp writes the decided segments.
+kernel runs a warp per word of 32 counts (a block a row of 288, ten rows
+of 32 a block), the rows of both of a planner call's sets
+(``optimize_for_rle_pair``) in one launch: the warps find the
+good-for-RLE runs, each step's inputs and the prefix sums of the counts;
+the chain carries the limit alone, and since a boundary sets the limit
+to its own step's, each lane finds the boundaries after itself within
+its word (32 tests, then pointer doubling), so only a word's entry is
+serial (on the row's first warp); then every position finds its segment
+between the boundaries around it and is rewritten where the segment is
+written.
 
 ``rle_histogram_masks`` and ``rle_bits_masks`` are the CL-symbol
 histogram (entropy_jax.rle_histogram, :255) and the bit size
@@ -34,7 +41,11 @@ Why the sweep's schedule is exact: every step reads the original counts
 write decided at step i covers [i - stride, i), behind the cursor, so the
 decisions never see a rewritten value and the segments, each starting at
 the previous boundary, are disjoint and can be written after the sweep.
-A step past ``eff`` changes nothing, so the sweep stops at ``eff``.
+Only the limit carries from step to step: the stride and total at a
+boundary are its distance to the previous boundary and the sum of the
+counts between (int32 sums wrap, so a difference of wrapping prefix sums
+equals the chain of adds). A step past ``eff`` changes nothing, so the
+sweep stops at ``eff``.
 """
 
 from __future__ import annotations
@@ -53,7 +64,8 @@ I64 = torch.int64
 MAX_L = 320  # the kernels' rows: 288 literal/length + 32 offset lengths
 MAX_MASKS = 32  # masks a rle_stats launch takes by value
 WARP = 32
-SWEEP_COUNTERS = ("rows", "steps", "boundaries", "segments", "rewritten")
+SWEEP_COUNTERS = ("rows", "words", "tests", "doubling_rounds", "boundaries", "segments",
+                  "rewritten")
 STATS_COUNTERS = ("lanes", "runs", "rows", "steps", "packed_rows", "group_adds",
                   "class_counts")
 # One mask's histograms sum their 19 bins packed three to a register in
@@ -72,21 +84,45 @@ def _arange(n, dev, dtype=I32):
 # ---------------------------------------------------------------------------
 
 
+def _check_counts(name, counts):
+    _build.check_cuda(f"rle_sweep {name}", counts, I32, 2)
+    if not 1 <= counts.shape[1] <= MAX_L:
+        raise ValueError(f"rle_sweep: rows of {counts.shape[1]} counts, the kernel takes "
+                         f"1..{MAX_L}")
+
+
 def optimize_for_rle(counts: torch.Tensor) -> torch.Tensor:
     """counts (B, L) int32, L <= 320 -> (B, L) int32: the histograms
     rewritten for RLE (optimize_histogram_for_rle, batched). A CPU tensor
     takes the plain form; a CUDA tensor one ``rle_sweep`` launch."""
     if counts.device.type == "cpu":
         return optimize_for_rle_plain(counts)
-    _build.check_cuda("rle_sweep counts", counts, I32, 2)
-    B, L = counts.shape
-    if not 1 <= L <= MAX_L:
-        raise ValueError(f"rle_sweep: rows of {L} counts, the kernel takes 1..{MAX_L}")
+    _check_counts("counts", counts)
     out = torch.empty_like(counts)
-    if B:
-        _build.launch("zt_rle_sweep", counts.data_ptr(), out.data_ptr(), B, L)
+    if counts.shape[0]:
+        _build.launch("zt_rle_sweep", counts.data_ptr(), out.data_ptr(), *counts.shape,
+                      None, None, 0, 0)
         count_launch("rle_sweep")
     return out
+
+
+def optimize_for_rle_pair(lit: torch.Tensor, off: torch.Tensor):
+    """``optimize_for_rle`` of two row sets, the planner's literal/length
+    (B, 288) and offset (B, 32) histograms -> (lit, off) rewritten. CPU
+    tensors take the plain form twice; CUDA tensors one ``rle_sweep``
+    launch for both sets (a warp a row of either)."""
+    if lit.device.type == "cpu" and off.device.type == "cpu":
+        return optimize_for_rle_plain(lit), optimize_for_rle_plain(off)
+    _check_counts("lit", lit)
+    _check_counts("off", off)
+    if lit.device != off.device:
+        raise ValueError(f"rle_sweep: row sets on {lit.device} and {off.device}")
+    out_lit, out_off = torch.empty_like(lit), torch.empty_like(off)
+    if lit.shape[0] + off.shape[0]:
+        _build.launch("zt_rle_sweep", lit.data_ptr(), out_lit.data_ptr(), *lit.shape,
+                      off.data_ptr(), out_off.data_ptr(), *off.shape)
+        count_launch("rle_sweep")
+    return out_lit, out_off
 
 
 def optimize_for_rle_plain(counts: torch.Tensor) -> torch.Tensor:
@@ -194,52 +230,92 @@ def _next_start(words: list, i: int):
     return k * WARP + (m & -m).bit_length() - 1 if m else None
 
 
+def _abs32(x: int) -> int:
+    """|x| of an int32 as int32 arithmetic gives it (|INT32_MIN| wraps to
+    itself), as the plain form's and the kernel's abs."""
+    return _i32(-x) if x < 0 else x
+
+
+def _word_paths(cw, good, step_limit, base, eff, stats):
+    """One word's boundary paths: for each lane i, the next lane j > i
+    (below ``eff``) that is a boundary under limit step_limit[base + i],
+    then the boundaries from i on by five rounds of pointer doubling ->
+    [path bits of lane i]."""
+    live = [base + j < eff for j in range(WARP)]
+    nxt = []
+    for i in range(WARP):
+        after = step_limit[base + i]
+        stats["tests"] += WARP
+        nxt.append(next((j for j in range(i + 1, WARP) if live[j] and (
+            good[base + j] or _abs32(_i32(cw[base + j] - after)) >= 4)), WARP))
+    path = [1 << i for i in range(WARP)]
+    for _ in range(5):
+        stats["doubling_rounds"] += 1
+        further = [path[x % WARP] for x in nxt]
+        then = [nxt[x % WARP] for x in nxt]
+        path = [p | f if x < WARP else p for p, f, x in zip(path, further, nxt)]
+        nxt = [t if x < WARP else x for x, t in zip(nxt, then)]
+    return path
+
+
 def rle_sweep_model(counts: torch.Tensor):
     """The ``rle_sweep`` kernel's schedule on a CPU tensor, row by row ->
     (the (B, L) rewrite of ``optimize_for_rle_plain``, {counter: count}
-    over ``SWEEP_COUNTERS``). The warp's part: ``eff`` by a max, the run
-    starts as ballot words, each position's run from the starts around
-    it, ``good`` and ``limit4`` for every position. Lane 0's part: the
-    sweep over i = 0..eff with (stride, limit, total) carried, appending
-    each decided segment. Then the warp writes the segments. Asserts
-    that every segment lies behind the cursor and after the one before."""
+    over ``SWEEP_COUNTERS``). The warp's parallel part: ``eff`` by a max,
+    the run starts as ballot words, each position's run from the nearest
+    starts, ``good``, each step's (count, limit a boundary sets) and the
+    wrapping prefix sums. The chain by words of 32 steps below ``eff``
+    (a warp each on the card): each lane's next boundary and path of
+    boundaries within its word (``_word_paths``), then the words in order, each entered with the
+    limit the last boundary before it set: the lowest lane that is a
+    boundary under it starts the word's path. Then every position's
+    segment from the boundary masks, its total from the prefix sums.
+    Asserts that the rewrite equals the sequential sweep's
+    (``optimize_for_rle_plain``)."""
     B, L = counts.shape
     out = counts.tolist()
     stats = dict.fromkeys(SWEEP_COUNTERS, 0)
     for row_out, c in zip(out, counts.tolist()):
         stats["rows"] += 1
         eff = max((i + 1 for i, v in enumerate(c) if v != 0), default=0)
+        n_words = -(-eff // WARP)
+        cw = c + [0] * (WARP * n_words + 3 - L)
         words = _start_words(c, eff)
-        good = [False] * L
+        good = [False] * len(cw)
         for i in range(eff):
             s = _prev_start(words, i)
             ns = _next_start(words, i)
-            run = (eff if ns is None else ns) - s
-            good[i] = run >= (5 if c[i] == 0 else 7)
-        c4 = c + [0, 0, 0, 0]
-        limit4 = [_i32(c4[i] + c4[i + 1] + c4[i + 2] + c4[i + 3] + 2) // 4 for i in range(L)]
-        stride, limit, total = 0, c4[0], 0
+            good[i] = (eff if ns is None else ns) - s >= (5 if c[i] == 0 else 7)
+        limit4 = [_i32(sum(cw[i : i + 4]) + 2) >> 2 for i in range(len(cw) - 3)]
+        step_limit = [limit4[i] if i < eff - 3 else cw[i] for i in range(len(cw) - 3)]
+        pre = [0]
+        for x in cw:
+            pre.append(_i32(pre[-1] + x))
+        limit, bounds = cw[0], []
+        for k in range(n_words):
+            stats["words"] += 1
+            base = WARP * k
+            path = _word_paths(cw, good, step_limit, base, eff, stats)
+            first = [j for j in range(WARP) if base + j < eff and (
+                good[base + j] or _abs32(_i32(cw[base + j] - limit)) >= 4)]
+            if first:
+                bits = path[first[0]]
+                bounds += [base + j for j in range(WARP) if bits >> j & 1]
+                limit = step_limit[base + bits.bit_length() - 1]
+        stats["boundaries"] += len(bounds) + (eff > 0)
         segments = []
-        for i in range(eff + 1):
-            stats["steps"] += 1
-            inside = i < eff
-            ci = c4[i]
-            if i == eff or (good[i] or abs(ci - limit) >= 4):
-                stats["boundaries"] += 1
-                if stride >= 4 or (stride >= 3 and total == 0):
-                    val = 0 if total == 0 else max(_i32(total + stride // 2) // stride, 1)
-                    start = i - stride
-                    assert start >= (segments[-1][1] if segments else 0) and i <= eff
-                    segments.append((start, i, val))
-                limit = limit4[i] if i < eff - 3 else (ci if inside else 0)
-                stride = total = 0
-            stride += 1
-            total = _i32(total + (ci if inside else 0))
+        for s, e in zip([0] + bounds, bounds + [eff]):
+            stride, total = e - s, _i32(pre[e] - pre[s])
+            if stride >= 4 or (stride >= 3 and total == 0):
+                segments.append((s, e, 0 if total == 0 else max(_i32(total + stride // 2)
+                                                                // stride, 1)))
         for start, end, val in segments:
             stats["segments"] += 1
             stats["rewritten"] += end - start
             row_out[start:end] = [val] * (end - start)
-    return torch.tensor(out, dtype=I32).view(B, L), stats
+    out = torch.tensor(out, dtype=I32).view(B, L)
+    assert torch.equal(out, optimize_for_rle_plain(counts))
+    return out, stats
 
 
 # ---------------------------------------------------------------------------

@@ -115,7 +115,7 @@ SUBSTAGES = [
     (dp_cuda, "dp_choices", "block plans: DP: the DP kernel"),
     (block_torch, "post_optimize", "block plans: post_optimize"),
     (block_torch, "dynamic_cost_given", "block plans: dynamic_cost_given"),
-    (block_torch, "optimize_for_rle", "block plans: optimize_for_rle"),
+    (block_torch, "optimize_for_rle_pair", "block plans: optimize_for_rle"),
     (block_torch, "mask_search", "block plans: mask_search"),
     (block_torch, "canonical_codewords", "block plans: canonical_codewords"),
     (block_torch, "emit_tokens", "block plans: emit"),
