@@ -1,0 +1,8 @@
+"""Milliseconds a MiB of input in the span of device_pipeline's
+``match_stacks`` (synchronized on both sides), over the traced window."""
+
+from portbench.metrics import stage_ms_per_MiB
+
+
+def read(ctx):
+    return stage_ms_per_MiB(ctx, "match_stacks")
