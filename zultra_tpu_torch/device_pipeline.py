@@ -25,7 +25,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from . import frame
+from . import frame, profiling
 from .bitwriter import BitWriter, BitWriterError
 from .constants import (
     HISTORY_SIZE,
@@ -197,22 +197,27 @@ def plan_windows(corpus: np.ndarray, spans, mbs: int, lens_st: torch.Tensor,
 
     n_pad = split_bucket(n_lane)
     tail = n_pad - n_lane
-    win_p = torch.nn.functional.pad(win_dev, (0, tail))
-    rl = torch.nn.functional.pad(lens_st[:, :, 0], (0, tail))
-    ro = torch.nn.functional.pad(offs_st[:, :, 0], (0, tail))
-    n_real = to_device(np.array([HALO + (hi - lo) for lo, hi in spans], np.int32), device)
-    cap = input_cap(mbs)
-    splits, n_splits, tok_marks, ovf = split_batch(win_p, rl, ro, HALO, n_real, cap,
-                                                   trig_cap_for(cap))
-    # The batch's one wait before the plans: the split points and the
-    # overflow flags come back together.
-    splits, n_splits, ovf = to_host(splits, n_splits, ovf)
-    if ovf.any():
-        # Exact retry of the overflowing lanes with every candidate slot
-        # evaluated.
-        full_splits, full_n = to_host(*split_batch(win_p, rl, ro, HALO, n_real, cap, 0)[:2])
-        splits = np.where(ovf[:, None], full_splits, splits)
-        n_splits = np.where(ovf, full_n, n_splits)
+    with profiling.span("zultra.split"):
+        win_p = torch.nn.functional.pad(win_dev, (0, tail))
+        rl = torch.nn.functional.pad(lens_st[:, :, 0], (0, tail))
+        ro = torch.nn.functional.pad(offs_st[:, :, 0], (0, tail))
+        n_real = to_device(np.array([HALO + (hi - lo) for lo, hi in spans], np.int32), device)
+        cap = input_cap(mbs)
+        splits, n_splits, tok_marks, ovf = split_batch(win_p, rl, ro, HALO, n_real, cap,
+                                                       trig_cap_for(cap))
+        # The batch's one wait before the plans: the split points and the
+        # overflow flags come back together.
+        splits, n_splits, ovf = to_host(splits, n_splits, ovf)
+        if ovf.any():
+            # Exact retry of the overflowing lanes with every candidate slot
+            # evaluated.
+            full_splits, full_n = to_host(*split_batch(win_p, rl, ro, HALO, n_real, cap, 0)[:2])
+            splits = np.where(ovf[:, None], full_splits, splits)
+            n_splits = np.where(ovf, full_n, n_splits)
+    if profiling.enabled():
+        profiling.count("split.positions", len(spans) * n_pad)
+        profiling.count("split.input", sum(HALO + hi - lo for lo, hi in spans))
+        profiling.count("split.retry", int(ovf.sum()))
 
     lanes = []
     spans_per_window = []
@@ -283,6 +288,13 @@ def compress_device(data: bytes, flags: int = 0, max_block_size: int = 0,
     distinct cards overlap; the plans are emitted in stream order. A
     device may appear twice (two threads share its stream). ``device``
     is the one device when ``devices`` is None."""
+    with profiling.span("zultra.compress"):
+        return _compress_device(data, flags, max_block_size, dictionary, windows_per_batch,
+                                devices, device)
+
+
+def _compress_device(data, flags, max_block_size, dictionary, windows_per_batch, devices,
+                     device) -> bytes:
     devs = [torch.device(d) for d in (devices if devices is not None else [device])]
     if windows_per_batch < 1 or not devs:
         raise ValueError("compress_device: need windows_per_batch >= 1 and at least one device")
@@ -303,7 +315,8 @@ def compress_device(data: bytes, flags: int = 0, max_block_size: int = 0,
         pos = hi
 
     out = bytearray(frame.encode_header(flags, dict_b if dict_b else None))
-    checksum = frame.update_checksum(frame.init_checksum(flags), corpus[base:], flags)
+    with profiling.span("zultra.checksum"):
+        checksum = frame.update_checksum(frame.init_checksum(flags), corpus[base:], flags)
     buf = bytearray(memory_bound(mbs, flags, mbs))
     bits_data, bits_count = 0, 0
     per_batch = windows_per_batch * len(devs)
@@ -321,8 +334,9 @@ def compress_device(data: bytes, flags: int = 0, max_block_size: int = 0,
             handles = [h for hs in planned for h in hs]
             for i, handle in enumerate(handles):
                 is_last = g + i + 1 == len(spans)
-                n, bits_data, bits_count = emit_window_from_plan(
-                    handle, is_last, buf, bits_data, bits_count)
+                with profiling.span("zultra.splice"):
+                    n, bits_data, bits_count = emit_window_from_plan(
+                        handle, is_last, buf, bits_data, bits_count)
                 out += buf[:n]
     finally:
         if pool is not None:
@@ -428,7 +442,8 @@ class DeviceWindowEngine:
 
     def emit_window(self, handle: _WindowPlan, window_is_last: bool, out: bytearray,
                     bits_data: int, bits_count: int):
-        return emit_window_from_plan(handle, window_is_last, out, bits_data, bits_count)
+        with profiling.span("zultra.splice"):
+            return emit_window_from_plan(handle, window_is_last, out, bits_data, bits_count)
 
     # -- per-window contract (direct users and cross-checks) ----------------
 

@@ -31,6 +31,7 @@ from ..constants import (
     NOFFSETSYMS,
 )
 
+from .. import profiling
 from . import plan_cuda, programs
 from .chain_cuda import chain_marks
 from .dp_cuda import run_dp
@@ -283,6 +284,8 @@ def to_device(arr: np.ndarray, device) -> torch.Tensor:
     stream has drained."""
     dev = torch.device(device)
     t = torch.from_numpy(np.ascontiguousarray(arr))
+    if profiling.enabled():
+        profiling.count("h2d.bytes", t.nbytes)
     return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
 
 
@@ -290,10 +293,13 @@ def to_host(*tensors: torch.Tensor) -> list:
     """Tensors as numpy arrays: non-blocking copies of all of them, then
     one wait on the current stream, where one ``.cpu()`` each would wait
     once each."""
-    host = [t.to("cpu", non_blocking=True) for t in tensors]
-    on_card = [t.device for t in tensors if t.is_cuda]
-    if on_card:
-        torch.cuda.current_stream(on_card[0]).synchronize()
+    with profiling.span("zultra.wait"):
+        host = [t.to("cpu", non_blocking=True) for t in tensors]
+        on_card = [t.device for t in tensors if t.is_cuda]
+        if on_card:
+            torch.cuda.current_stream(on_card[0]).synchronize()
+    if profiling.enabled():
+        profiling.count("d2h.bytes", sum(t.nbytes for t in tensors))
     return [h.numpy() for h in host]
 
 
@@ -384,12 +390,21 @@ def plan_blocks_device_multi(win_stack, lens_stack, offs_stack, lanes, tok_stack
     graph replay on the card, keyed on the bucket's shape alone). Returns
     plans in ``lanes`` order."""
     plans: list = [None] * len(lanes)
-    for n_pad, idxs in plan_buckets(lanes):
-        meta = np.zeros((3, padded_lanes(len(idxs))), np.int64)  # padded: window 0, start 0
-        meta[:, : len(idxs)] = np.array([lanes[i] for i in idxs], np.int64).T
-        bucket = slice_bucket(win_stack, lens_stack, offs_stack,
-                              to_device(meta, win_stack.device), tok_stack, n_pad)
-        collect_plans(programs.run(plan_block_core, *bucket), idxs, plans)
+    with profiling.span("zultra.plan"):
+        for n_pad, idxs in plan_buckets(lanes):
+            with profiling.span("zultra.plan.slice"):
+                meta = np.zeros((3, padded_lanes(len(idxs))), np.int64)  # padded: window 0, start 0
+                meta[:, : len(idxs)] = np.array([lanes[i] for i in idxs], np.int64).T
+                bucket = slice_bucket(win_stack, lens_stack, offs_stack,
+                                      to_device(meta, win_stack.device), tok_stack, n_pad)
+            with profiling.span("zultra.plan.program"):
+                out = programs.run(plan_block_core, *bucket)
+            with profiling.span("zultra.plan.collect"):
+                collect_plans(out, idxs, plans)
+            if profiling.enabled():
+                profiling.count("plan.buckets")
+                profiling.count("plan.positions", meta.shape[1] * n_pad)
+                profiling.count("plan.input", sum(lanes[i][2] for i in idxs))
     return plans
 
 

@@ -51,6 +51,7 @@ from ..constants import (
     NMATCHES_PER_OFFSET,
 )
 
+from .. import profiling
 from ..matchfinder import find_all_matches
 from . import programs
 from .block_torch import to_device
@@ -124,13 +125,14 @@ def upload_batch(corpus: np.ndarray, spans, mbs: int, device):
     size = HALO + W * k * SEG_CORE + TAIL
     if spans[-1][1] - origin > size:
         raise ValueError("the spans of a batch must follow one another")
-    buf = np.zeros(size, np.uint8)
-    buf[: spans[-1][1] - origin] = corpus[origin : spans[-1][1]]
-    seg, _ = segment_geometry(spans, SEG_CORE, origin)
-    meta = np.zeros((W * k + W, 3), np.int32)
-    meta[: len(seg)] = seg
-    meta[W * k :] = window_geometry(spans, origin)
-    return to_device(buf, device), to_device(meta, device), W, k
+    with profiling.span("zultra.upload"):
+        buf = np.zeros(size, np.uint8)
+        buf[: spans[-1][1] - origin] = corpus[origin : spans[-1][1]]
+        seg, _ = segment_geometry(spans, SEG_CORE, origin)
+        meta = np.zeros((W * k + W, 3), np.int32)
+        meta[: len(seg)] = seg
+        meta[W * k :] = window_geometry(spans, origin)
+        return to_device(buf, device), to_device(meta, device), W, k
 
 
 def _gather(corpus_dev: torch.Tensor, geom: torch.Tensor, width: int):
@@ -208,9 +210,13 @@ def match_stacks(corpus: np.ndarray, spans, mbs: int, device):
     exactly ``mbs`` long, and the spans must follow one another. One copy
     to the device, then ``match_program`` (a graph replay on the card
     once its shape has come twice)."""
-    corpus_dev, meta, W, k = upload_batch(np.asarray(corpus, dtype=np.uint8), spans, mbs,
-                                          device)
-    lens, offs, win = programs.run(match_program, corpus_dev, meta, W=W, k=k)
+    with profiling.span("zultra.match"):
+        corpus_dev, meta, W, k = upload_batch(np.asarray(corpus, dtype=np.uint8), spans, mbs,
+                                              device)
+        lens, offs, win = programs.run(match_program, corpus_dev, meta, W=W, k=k)
+    if profiling.enabled():
+        profiling.count("match.positions", W * k * SEG_CORE)
+        profiling.count("match.input", sum(hi - lo for lo, hi in spans))
     n_lane = HALO + mbs
     return lens[:, :n_lane], offs[:, :n_lane], win[:, :n_lane]
 

@@ -44,6 +44,7 @@ from collections import OrderedDict
 
 import torch
 
+from .. import profiling
 from . import add_launches, capturing_launches
 
 
@@ -134,11 +135,13 @@ class DevicePrograms:
                 for buf, x in zip(prog.inputs, inputs):
                     if x is not None:
                         buf.copy_(x)
+                profiling.count("program.replay")
             elif key in self.seen:
                 del self.seen[key]
                 prog = self._capture(key, fn, inputs, statics)
             else:
                 _remember(self.seen, key, None)
+                profiling.count("program.eager")
                 return fn(*inputs, **statics)
             self.graphs.replay(prog.graph)
             add_launches(prog.launches)
@@ -153,17 +156,20 @@ class DevicePrograms:
             prog.graph, prog.outputs = self.graphs.capture(fn, prog.inputs, statics)
         prog.launches = {k: n for k, n in launches.items() if n}
         prog.capture_ms = (time.perf_counter() - t0) * 1e3
+        profiling.count("program.capture")
+        profiling.count("program.capture_s", prog.capture_ms / 1e3)
         _remember(self.programs, key, prog)
         return prog
 
 
 def _remember(table: OrderedDict, key, value) -> None:
     """``table[key] = value`` as its most recent entry, the least recent
-    dropped past ``MAX_PROGRAMS``."""
+    dropped past ``MAX_PROGRAMS`` (a dropped graph counts as an eviction)."""
     table[key] = value
     table.move_to_end(key)
     while len(table) > MAX_PROGRAMS:
-        table.popitem(last=False)
+        if table.popitem(last=False)[1] is not None:
+            profiling.count("program.evict")
 
 
 _devices: dict = {}  # CUDA device index -> DevicePrograms

@@ -7,16 +7,19 @@ four 1 MiB windows) after a first call (the kernels' build, every
 program's shapes met eagerly) and a second (every program's capture,
 ``ops/programs.py``), four ways:
 
-1. untraced: host clock around the call, ending in a synchronize;
+1. untraced: host clock around the call, ending in a synchronize, with
+   the port's tracer on (``profiling.enable``): its spans and counters
+   are printed after the call;
 2. stage timing: the top-level stages wrapped in torch.cuda.synchronize()
    and the host clock, the planner and the splitter replayed as graphs;
 3. eager stage timing: ``programs.run`` bypassed, so that the planner and
    the splitter run their functions eagerly, op by op, and their
    sub-stages can be wrapped too (a synchronize cannot sit inside a
    capture or a replay); labelled "eager" in the output;
-4. traced: torch.profiler with CUDA activity only, for the device's busy
-   time, the kernel time by name, and the device time per launch of each
-   of the port's own kernels.
+4. traced: torch.profiler with CUDA activity only, for the kernel time
+   by name and the device time per launch of each of the port's own
+   kernels (the device's busy and idle time by span is what
+   ``portbench``'s traced run reads).
 
 Also the first and second calls' seconds, the peak memory the allocator
 reserved by the end of the untraced call, and the programs: their
@@ -69,15 +72,13 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import cli, device_pipeline
+from . import cli, device_pipeline, profiling
 from .corpus import case_inputs
 from .ops import (
     block_torch,
     dp_cuda,
     entropy_torch,
-    launch_counts,
     matchfinder_torch,
-    reset_launch_counts,
     split_torch,
     suffix_torch,
 )
@@ -315,13 +316,21 @@ def main() -> int:
 
     first = run()  # the kernels' build, the allocator's caches; every shape eager
     second = run()  # every program's capture
-    reset_launch_counts()
-    wall = run()
-    launches = launch_counts()
+    profiling.reset()  # the launch counts too
+    profiling.enable()
+    try:
+        wall = run()
+    finally:
+        profiling.enable(False)
+    report = profiling.report(reset=True)
+    launches = report["launches"]
     reserved = torch.cuda.max_memory_reserved()
     print(f"first call: {first:.3f} s; second (captures): {second:.3f} s; untraced: "
           f"{wall:.3f} s, {len(data) / 1e6 / wall:.4f} MB/s; launches {launches}; peak "
           f"reserved {reserved} B")
+    for name, sp in report["spans"].items():
+        print(f"  span {name}: {sp['total_s']:.4f} s over {sp['calls']} calls")
+    print(f"  counters {report['counters']}")
     progs = [{"key": p["text"], "name": p["key"][0].__qualname__, "capture_ms": p["capture_ms"],
               "launches": p["launches"]} for p in programs.captured(dev)]
     for p in progs:
@@ -368,9 +377,7 @@ def main() -> int:
         if us > 0:
             kernels.append((us / 1e6, ev.count, ev.key))
     kernels.sort(reverse=True)
-    busy = sum(k[0] for k in kernels)
-    print(f"traced: {traced:.3f} s wall, device busy {busy:.4f} s, idle share "
-          f"{1 - busy / traced:.4f}")
+    print(f"traced: {traced:.3f} s wall, kernel time {sum(k[0] for k in kernels):.4f} s")
     for s, count, key in kernels[:15]:
         print(f"  {s:.4f} s  {count:7d}x  {key[:90]}")
     # A port kernel is ``{name}_kernel`` or, where one call makes several
@@ -399,14 +406,13 @@ def main() -> int:
                     for row in _golden_match(c, dev)]
     print(json.dumps({
         "card": smi, "golden_match": golden_match, "mb": len(data) / 1e6, "first_call_s": first, "second_call_s": second,
-        "wall_s": wall,
+        "wall_s": wall, "spans": report["spans"], "counters": report["counters"],
         "mb_per_s": len(data) / 1e6 / wall, "launches": launches,
         "max_memory_reserved": reserved, "programs": progs,
         "pool_bytes": pool, "replay_launches": replay_launches,
         "stage_timed": {name: {"wall_s": secs, "stages_s": stages}
                         for name, (secs, stages) in runs.items()},
-        "traced_wall_s": traced, "device_busy_s": busy, "idle_share_traced": 1 - busy / traced,
-        "idle_share_untraced_derived": 1 - busy / wall, "port_kernels": ours,
+        "traced_wall_s": traced, "port_kernels": ours,
         "top_kernels": [{"s": s, "count": c, "name": k[:120]} for s, c, k in kernels[:15]]}))
     return 0
 
