@@ -703,6 +703,32 @@ def test_devices_and_windows_per_batch_equal_native(cuda):
         engine._active_engine = None
 
 
+def test_one_window_lane_follows_its_input_on_the_card(cuda):
+    """A 48,944-byte gzip input at 1 MiB blocks: each call plans one batch
+    at a lane of two segments, gives the CPU form's bytes, and from the
+    third call on replays every program, the match program at (W, k) =
+    (1, 2), with no new capture and no eager call."""
+    from zultra_tpu_torch import compress_device, profiling
+
+    data = mixed_corpus(48944, seed=98)
+    want = compress_device(data, 2, 1 << 20, device="cpu")
+    profiling.reset()
+    for call in range(4):
+        profiling.enable()
+        try:
+            got = compress_device(data, 2, 1 << 20, device=cuda)
+        finally:
+            profiling.enable(False)
+        c = profiling.report(reset=True)["counters"]
+        assert got == want, call
+        assert c["lane.narrowed"] == 1 and c["match.positions"] == 2 * SEG_CORE, (call, c)
+        if call >= 2:
+            assert c.get("program.capture", 0) == 0 and c.get("program.eager", 0) == 0, (call, c)
+            assert c["program.replay"] >= 3, (call, c)  # match, split and the planner's buckets
+    statics = [dict(p["key"][2]) for p in programs.captured(cuda) if p["key"][0] is match_program]
+    assert {"W": 1, "k": 2} in statics, statics
+
+
 def test_windows_distributed_gloo_on_one_card(cuda, tmp_path):
     """Two gloo ranks spawned on cuda:0: rank 0's stream equals the native
     engine's, and both ranks launched the compression kernels."""

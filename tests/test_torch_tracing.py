@@ -10,7 +10,8 @@ the host orchestration, off by default. On the CPU:
   batches and buckets imply, and under ``torch.profiler`` the spans are
   ranges nested as the calls are;
 - the program counters follow the ``MAX_PROGRAMS`` policy exactly;
-- the padding counters equal their formulas;
+- the padding counters equal their formulas, at a lane narrowed to
+  its input too;
 - the counters stay whole under two planning threads.
 
 Every test turns the tracer off again at its end."""
@@ -66,13 +67,13 @@ class _Lanes:
         device_pipeline.plan_blocks_device_multi = self.saved
 
 
-def _traced(data, **kwargs):
+def _traced(data, block=MBS, **kwargs):
     """(output, report, lanes of each planner call) of a compression with
     the tracer on."""
     profiling.enable()
     try:
         with _Lanes() as lanes:
-            out = device_pipeline.compress_device(data, 2, MBS, device="cpu", **kwargs)
+            out = device_pipeline.compress_device(data, 2, block, device="cpu", **kwargs)
     finally:
         profiling.enable(False)
     return out, profiling.report(reset=True), lanes.calls
@@ -204,20 +205,26 @@ def test_program_counters_follow_the_policy():
     assert len(progs.programs) == cap
 
 
-@pytest.mark.parametrize("size", [3000, 2 * MBS], ids=["far_below_the_block", "whole_windows"])
-def test_padding_counters_equal_their_formulas(size, two_windows):
+@pytest.mark.parametrize("size,block,width", [(3000, MBS, MBS), (2 * MBS, MBS, MBS),
+                                              (3000, 4 * SEG_CORE, SEG_CORE)],
+                         ids=["far_below_the_block", "whole_windows", "narrowed_lane"])
+def test_padding_counters_equal_their_formulas(size, block, width, two_windows):
+    """At 32 KiB blocks a lane is the block wide; a small input under a
+    block four segments wide is planned at a one-segment lane, and counts
+    one narrowed batch."""
     if size == 2 * MBS:
         _, _, report, _, lanes = two_windows
         batches = [[(0, MBS)], [(MBS, 2 * MBS)]]
     else:
-        _, report, lanes = _traced(mixed_corpus(size, seed=64))
+        _, report, lanes = _traced(mixed_corpus(size, seed=64), block)
         batches = [[(0, size)]]
     c = report["counters"]
-    k = -(-MBS // SEG_CORE)
+    k = -(-width // SEG_CORE)
     assert c["match.positions"] == sum(len(b) * k * SEG_CORE for b in batches)
     assert c["match.input"] == size
-    assert c["split.positions"] == sum(len(b) * split_bucket(HALO + MBS) for b in batches)
+    assert c["split.positions"] == sum(len(b) * split_bucket(HALO + width) for b in batches)
     assert c["split.input"] == sum(HALO + hi - lo for b in batches for lo, hi in b)
+    assert c["lane.narrowed"] == (len(batches) if width < block else 0)
     # The planner's lanes are the blocks: their lengths sum to the input,
     # each bucket padded to a power of two lanes of its width.
     assert len(lanes) == len(batches)
@@ -225,7 +232,7 @@ def test_padding_counters_equal_their_formulas(size, two_windows):
     assert c["plan.input"] == size == sum(ln for call in lanes for _, _, ln in call)
     assert c["plan.positions"] == sum(padded_lanes(len(idxs)) * n_pad for n_pad, idxs in buckets)
     assert c["plan.buckets"] == len(buckets)
-    if size < MBS:
+    if size < block:
         assert 100 * (1 - c["match.input"] / c["match.positions"]) > 90
     else:
         assert c["match.input"] == c["match.positions"]

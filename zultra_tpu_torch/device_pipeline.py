@@ -36,7 +36,7 @@ from .constants import (
 )
 from .huffman import HuffmanEncoder, write_var_lengths
 from .ops.block_torch import on_device, plan_blocks_device_multi, to_device, to_host
-from .ops.matchfinder_torch import HALO, match_stacks, match_table
+from .ops.matchfinder_torch import HALO, SEG_CORE, match_stacks, match_table
 from .ops.split_torch import input_cap, split_batch, split_bucket, trig_cap_for
 from .stream import StreamError, clamp_block_size, memory_bound
 
@@ -266,6 +266,23 @@ def begin_window_device(window: np.ndarray, prev: int, in_size: int, n_threads: 
     return handle
 
 
+def lane_width(spans, mbs: int) -> int:
+    """The lane width a one-shot batch is planned at: its longest span
+    rounded up to a power-of-two count of SEG_CORE segments, at most
+    ``mbs``. A batch of several windows holds a whole window, so only a
+    one-window batch shorter than the block size (a small input, or a
+    long one's lone tail window) is narrowed. Powers of two keep the
+    match and split programs to six shapes each at 1 MiB blocks. The
+    bytes do not depend on the width: the match program's pad rows are
+    sentinels, the split retries exactly where its candidate cap
+    overflows, and the planner's lanes are the blocks."""
+    longest = max(hi - lo for lo, hi in spans)
+    width = SEG_CORE
+    while width < longest:
+        width *= 2
+    return min(width, mbs)
+
+
 def begin_windows_on(device: torch.device, corpus: np.ndarray, spans, mbs: int) -> list:
     """begin_windows_batched with ``device`` current."""
     with on_device(device):
@@ -287,7 +304,9 @@ def compress_device(data: bytes, flags: int = 0, max_block_size: int = 0,
     device from a host thread of its own, so that the launches on
     distinct cards overlap; the plans are emitted in stream order. A
     device may appear twice (two threads share its stream). ``device``
-    is the one device when ``devices`` is None."""
+    is the one device when ``devices`` is None. Each batch is planned at
+    ``lane_width``: a one-window batch shorter than the block size at its
+    input's width, with the same bytes."""
     with profiling.span("zultra.compress"):
         return _compress_device(data, flags, max_block_size, dictionary, windows_per_batch,
                                 devices, device)
@@ -324,13 +343,16 @@ def _compress_device(data, flags, max_block_size, dictionary, windows_per_batch,
     try:
         for g in range(0, len(spans), per_batch):
             batch = spans[g : g + per_batch]
+            width = lane_width(batch, mbs)
+            profiling.count("lane.narrowed", int(width < mbs))
             per = -(-len(batch) // len(devs))
             groups = [(d, batch[i * per : (i + 1) * per]) for i, d in enumerate(devs)
                       if batch[i * per : (i + 1) * per]]
             if pool is None:
-                planned = [begin_windows_on(d, corpus, grp, mbs) for d, grp in groups]
+                planned = [begin_windows_on(d, corpus, grp, width) for d, grp in groups]
             else:
-                planned = list(pool.map(lambda dg: begin_windows_on(dg[0], corpus, dg[1], mbs), groups))
+                planned = list(pool.map(lambda dg: begin_windows_on(dg[0], corpus, dg[1], width),
+                                        groups))
             handles = [h for hs in planned for h in hs]
             for i, handle in enumerate(handles):
                 is_last = g + i + 1 == len(spans)
