@@ -308,7 +308,7 @@ def main() -> int:
         matchlen_hist_bench,
         walk_bench,
     )
-    from zultra_tpu_torch.corpus import case_inputs
+    from zultra_tpu_torch.corpus import case_inputs, text_corpus
     from zultra_tpu_torch.matchlen_hist_bench import trace_ms as device_ms
     from zultra_tpu_torch.ops import (
         block_torch,
@@ -381,23 +381,23 @@ def main() -> int:
     # and with the share of segments the kernel's fix-up re-ran. Eight
     # 32 KiB corpus lanes (the row kept from the first kernel), the lanes
     # of every planner bucket of the 4 MiB gzip case (its first pass), one
-    # lane that is a 64 KiB zero run (no segment anchors) and one 2^21
-    # lane of random bytes (above the clamp limit: one sequential pass).
+    # lane that is a 64 KiB zero run (no segment anchors), and two lanes
+    # of 2^21 positions (a 2 MiB block, the longest), text and random
+    # bytes.
     def dp_row(label, args, reps):
         got, st = dp_cuda.dp_choices(*args, status=True)
         want, plain = host_ms(lambda: dp_cuda.dp_choices_plain(*[a.cpu() for a in args[:4]]))
         seg = st[st != dp_cuda.ST_NONE]
-        n_seq = int((seg == dp_cuda.ST_SEQUENTIAL).sum())
         n_rerun = int((seg == dp_cuda.ST_RERUN).sum())
         row = dict(batch=label, shape=list(args[0].shape), lengths=args[4].tolist()[:16],
                    max_abs_err=compare(f"dp [{label}]", got, want), plain_ms=plain,
                    ms=cuda_ms(lambda: dp_cuda.dp_choices(*args), reps),
                    bound_ms=bound_ms(*args, got), segments=int(seg.numel()), rerun=n_rerun,
-                   sequential=n_seq, fixed_share=n_rerun / max(1, int(seg.numel()) - n_seq))
+                   fixed_share=n_rerun / max(1, int(seg.numel())))
         print(f"dp [{label}]: equal on {tuple(args[0].shape)} lanes x positions; kernel "
               f"{row['ms']:.4f} ms (3 launches), plain {plain:.1f} ms (cpu), bound "
               f"{row['bound_ms']:.4g} ms; segments {row['segments']}, re-run {n_rerun} "
-              f"(share {row['fixed_share']:.4f}), sequential {n_seq}")
+              f"(share {row['fixed_share']:.4f})")
         return row
 
     def one_lane(buf):
@@ -535,6 +535,8 @@ def main() -> int:
     for n_pad, args in sorted(buckets.items()):
         dp_rows.append(dp_row(f"gzip bucket {n_pad}", (*dp_cuda.prep_lanes(*args), args[5]), 3))
     dp_rows.append(dp_row("64 KiB zero run", one_lane(np.zeros(1 << 16, np.uint8)), 3))
+    dp_rows.append(dp_row("2^21 text", one_lane(
+        np.frombuffer(text_corpus(1 << 21, 6), np.uint8)), 1))
     dp_rows.append(dp_row("2^21 random bytes", one_lane(
         np.random.default_rng(6).integers(0, 256, 1 << 21, np.uint8)), 1))
     results["dp"] = dict(dp_rows[0], plain_device="cpu", rows=dp_rows)

@@ -19,8 +19,8 @@ from torch.profiler import ProfilerActivity, profile
 
 import zultra_tpu as zt
 from zultra_tpu import engine
-from zultra_tpu_torch import FINALIZE, DeviceWindowEngine, Stream, compress, ops
-from zultra_tpu_torch.corpus import case_inputs, lz_data, mixed_corpus
+from zultra_tpu_torch import FINALIZE, DeviceWindowEngine, Stream, compress, ops, profiling
+from zultra_tpu_torch.corpus import case_inputs, lz_data, mixed_corpus, random_bytes, text_corpus
 from zultra_tpu_torch.ops import (
     block_torch,
     chain_cuda,
@@ -136,14 +136,12 @@ def test_dp_and_chain_kernels_equal_plain(cuda):
     assert bool(tok.any())
 
 
-@pytest.mark.parametrize("seg,warm,seq_limit", [(dp_cuda.SEG, dp_cuda.WARM, dp_cuda.SEQ_LIMIT),
-                                                (512, 512, 4000), (259, 0, dp_cuda.SEQ_LIMIT)])
-def test_dp_segments_kernel_equals_model(cuda, seg, warm, seq_limit):
+@pytest.mark.parametrize("seg,warm", [(dp_cuda.SEG, dp_cuda.WARM), (512, 512), (259, 0)])
+def test_dp_segments_kernel_equals_model(cuda, seg, warm):
     """A lane with a 4 KiB zero run and ragged lengths (1, 511, 512, 513,
     past the last full segment, 0): the kernel's choices equal the
     sequential recurrence's, and its segment status equals the schedule
-    model's, so the kernel re-ran exactly the segments the model did (and
-    ran sequentially the lanes above ``seq_limit``)."""
+    model's, so the kernel re-ran exactly the segments the model did."""
     n = 8192
     d = bytearray(mixed_corpus(8 * n, seed=71)[: 8 * n])
     d[2048 : 2048 + 4096] = bytes(4096)
@@ -157,14 +155,46 @@ def test_dp_segments_kernel_equals_model(cuda, seg, warm, seq_limit):
     g_lit, g_off, _ = block_torch.token_hist(win, ml[:, :, 0], mo[:, :, 0], length)
     args = dp_cuda.prep_lanes(build_lengths(g_lit, 15), build_lengths(g_off, 15), win, ml, mo,
                               length)
-    got, st = dp_cuda.dp_choices(*args, length, status=True, seg=seg, warm=warm,
-                                 seq_limit=seq_limit)
+    got, st = dp_cuda.dp_choices(*args, length, status=True, seg=seg, warm=warm)
     torch.cuda.synchronize()
     cpu = [a.cpu() for a in args]
     assert torch.equal(got.cpu(), dp_cuda.dp_choices_plain(*cpu))
-    _, want_st = dp_cuda.dp_segments_model(*cpu, length.cpu(), seg, warm, seq_limit)
+    _, want_st = dp_cuda.dp_segments_model(*cpu, length.cpu(), seg, warm)
     assert torch.equal(st.cpu(), want_st)
-    assert int((st.eq(dp_cuda.ST_RERUN) | st.eq(dp_cuda.ST_SEQUENTIAL)).sum()) > 0
+    assert int(st.eq(dp_cuda.ST_RERUN).sum()) > 0
+
+
+def _one_lane_dp_args(buf: np.ndarray, dev):
+    """The DP's inputs for one lane of ``buf``: its match table on the
+    card, code lengths from its greedy token histogram."""
+    n = len(buf)
+    lens, offs = match_tables_device_stacked(buf, [(0, n)], n, dev)
+    win = torch.from_numpy(buf.copy()).to(dev)[None]
+    ml = lens[:, HALO : HALO + n].contiguous()
+    mo = offs[:, HALO : HALO + n].contiguous()
+    length = torch.full((1,), n, dtype=torch.int32, device=dev)
+    g_lit, g_off, _ = block_torch.token_hist(win, ml[:, :, 0], mo[:, :, 0], length)
+    return (*dp_cuda.prep_lanes(build_lengths(g_lit, 15), build_lengths(g_off, 15), win, ml, mo,
+                                length), length)
+
+
+@pytest.mark.parametrize("kind", ["text", "random"])
+def test_dp_long_lane_equals_one_thread_form(cuda, kind):
+    """A 2^21 lane (MAX_LANE, a 2 MiB block): the kernel's choices equal
+    its one-thread form (one segment as long as the lane, run from the
+    length by one thread), max abs err 0, and its segments run in
+    parallel. Text costs some 2.6 bits a position, random bytes some 8,
+    about 2^24 bits in all: no sum is clamped in either form."""
+    buf = (np.frombuffer(text_corpus(1 << 21, 6), np.uint8) if kind == "text"
+           else np.frombuffer(random_bytes(1 << 21, 6), np.uint8))
+    args = _one_lane_dp_args(buf, cuda)
+    got, st = dp_cuda.dp_choices(*args, status=True)
+    one, one_st = dp_cuda.dp_choices(*args, status=True, seg=1 << 21)
+    torch.cuda.synchronize()
+    assert one_st.tolist() == [[dp_cuda.ST_EXACT]]
+    assert int((got != one).sum()) == 0
+    counts = collections.Counter(st.flatten().tolist())
+    assert counts[dp_cuda.ST_EXACT] == 1 and counts[dp_cuda.ST_ANCHORED] > 1900, counts
 
 
 @pytest.mark.parametrize("seg,warm", [(chain_cuda.SEG, chain_cuda.WARM), (100, 30)])
@@ -926,6 +956,26 @@ def test_every_golden_digest_through_the_programs(cuda, path):
         _assert_golden(f"{name} {path}", case, out)
 
 
+def test_text_at_2m_blocks_runs_its_long_lanes_in_parallel(cuda):
+    """The golden text case at zultra's largest block size: two windows,
+    each holding one block past 2^20 positions (4,191,288 of the
+    4,194,304 bytes in the two; the tracer's dp.long_* counters); the
+    bytes are the golden digest."""
+    case = _golden_cases()["text2m"]
+    data, _ = case_inputs(case)
+    compress(data, case["flags"], case["block_size"], device=cuda)  # eager, then the counts
+    profiling.reset()
+    profiling.enable()
+    try:
+        out = compress(data, case["flags"], case["block_size"], device=cuda)
+    finally:
+        profiling.enable(False)
+    c = profiling.report(reset=True)["counters"]
+    _assert_golden("text2m", case, out)
+    assert c["plan.input"] == len(data) and c["dp.long_lanes"] == 2, c
+    assert 0.99 * len(data) < c["dp.long_positions"] < len(data), c
+
+
 def test_padded_zero_length_lanes_on_the_card(cuda):
     """A bucket of 3 lanes planned at 4 on the card equals its CPU plans;
     lanes of length 0 go through every kernel of the planner (DP, chain, MK,
@@ -1309,12 +1359,12 @@ def test_optimize_matches_on_the_card_equals_cpu(cuda):
 
 
 def test_optimize_matches_lane_above_seq_limit_on_the_card(cuda):
-    """A block of SEQ_LIMIT + 5000 positions: the kernel runs it as one
-    sequential pass, equal to the CPU run."""
+    """A block of 1,123,479 positions, past 2^20: the kernel runs its
+    segments, equal to the CPU run."""
     from zultra_tpu import native
     from zultra_tpu_torch.ops import parse_torch
 
-    size = dp_cuda.SEQ_LIMIT + 5000 + 100
+    size = 1_118_479 + 5000 + 100
     window = np.frombuffer(mixed_corpus(size, seed=9), np.uint8)
     table = native.build_match_table(window, 100).astype(np.int32)
     rng = np.random.default_rng(9)

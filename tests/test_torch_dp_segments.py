@@ -1,10 +1,10 @@
 """The DP kernel's segment-parallel schedule, as its plain model
 (``dp_cuda.dp_segments_model``: speculate, check, fix up, with the
-segment size, the warm-up and the sequential limit as arguments), against
-the sequential recurrence (``dp_choices_plain``) and, once, the JAX
-package's Pallas DP in interpret mode. Inputs are the planner's: match
-tables from the port's match finder and code lengths from the greedy
-token histogram, on numpy-seeded data. Every array is integer: tolerance
+segment size and the warm-up as arguments), against the sequential
+recurrence (``dp_choices_plain``) and, once, the JAX package's Pallas DP
+in interpret mode. Inputs are the planner's: match tables from the
+port's match finder and code lengths from the greedy token histogram,
+on numpy-seeded data. Every array is integer: tolerance
 is exact equality. Each case also asserts how many segments the fix-up
 re-ran, so that no case passes by re-running everything."""
 
@@ -22,7 +22,6 @@ from zultra_tpu_torch.ops.dp_cuda import (
     ST_EXACT,
     ST_NONE,
     ST_RERUN,
-    ST_SEQUENTIAL,
     ST_SPECULATED,
 )
 from zultra_tpu_torch.ops.entropy_torch import build_lengths
@@ -120,14 +119,18 @@ def test_model_ragged_lengths(seg, n_rerun):
     assert c[ST_RERUN] == n_rerun and c[ST_ANCHORED] > 4 * n_rerun
 
 
-def test_model_above_the_clamp_limit_runs_sequentially():
-    """A lane longer than the sequential limit runs as one pass from its
-    length; a shorter lane in the same batch is still segmented."""
-    args = _dp_inputs(mixed_corpus(2 * N, seed=4), [N, 3000])
-    st, c = _run(args, seq_limit=4000)
-    assert st[0].eq(ST_SEQUENTIAL).all()
-    assert st[1, :3].tolist() == [ST_ANCHORED, ST_ANCHORED, ST_EXACT]
-    assert c[ST_RERUN] == 0
+@pytest.mark.parametrize("status", [False, True])
+def test_lanes_past_max_lane_are_refused(status):
+    """Lanes wider than MAX_LANE (2^21, a 2 MiB block) are refused, by the
+    plain forms as by the kernel: past it the packed sums of the
+    recurrence, (15 bits a position + 20) * 64 + 63, could pass 2^31."""
+    assert (15 * dp_cuda.MAX_LANE + 20) * 64 + 63 < 2**31
+    n = dp_cuda.MAX_LANE + 1
+    lit = torch.zeros((1, n), dtype=torch.int32)
+    p = torch.zeros((1, n, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="past 2097152"):
+        dp_cuda.dp_choices(lit, p, p, torch.zeros((1, 40), dtype=torch.int32),
+                           torch.ones(1, dtype=torch.int32), status=status)
 
 
 def test_model_equals_pallas_dp():

@@ -34,6 +34,9 @@ CASES = [
     ("stored", ["random_bytes", 65536, 0], [0, 65536], 2, 0, None),
     # 33 windows of 64 KiB (the last 12345 bytes): three device batches
     ("stream", MIXED, [0, 2109497], 2, 65536, None),
+    # zultra's largest block size on text: two windows, each one block of
+    # 2^21 positions, DP lanes past 2^20
+    ("text2m", ["text_corpus", 4 * MIB, 0], [0, 4 * MIB], 2, 2 * MIB, None),
 ]
 
 

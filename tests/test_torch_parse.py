@@ -2,9 +2,9 @@
 forms of the lane preparation and the DP: ``optimize_matches`` and
 ``optimize_matches_batch`` against the JAX scan DP (parse_jax), the
 tiled wavefront DP and its batched scan and wavefront forms
-(parse_wavefront), with blocks that start past the window's history and
-one lane longer than ``dp_cuda.SEQ_LIMIT``. Choices are integers: exact
-equality."""
+(parse_wavefront), with blocks that start past the window's history,
+one lane longer than 2^20 and one of 2^21 random bytes whose parse costs
+more than 2^24 bits. Choices are integers: exact equality."""
 
 import numpy as np
 import pytest
@@ -17,7 +17,7 @@ from zultra_tpu.ops.parse_wavefront import (
     optimize_matches_wavefront_batch,
 )
 from zultra_tpu_torch import ops
-from zultra_tpu_torch.corpus import lz_data, mixed_corpus
+from zultra_tpu_torch.corpus import lz_data, mixed_corpus, random_bytes
 from zultra_tpu_torch.ops import dp_cuda, parse_torch
 
 torch.set_num_threads(1)  # one thread per pytest worker (test_torch_pipeline.py)
@@ -74,13 +74,33 @@ def test_optimize_matches_empty_block_and_export():
 
 
 def test_lane_above_seq_limit_equals_scan():
-    """One block of SEQ_LIMIT + 5000 positions (past it the kernel runs a
-    lane as one sequential pass) on the plain form, against the scan DP.
-    Its literals cost at most 13 bits, so every cost stays below the
-    kernel's clamp (2^24 - 1) and the result must equal the scan's."""
-    size = dp_cuda.SEQ_LIMIT + 5000 + 100
+    """One block of 1,123,479 positions, past 2^20 (the largest block the
+    JAX package's Pallas DP takes), on the plain form, against the scan
+    DP."""
+    size = 1_118_479 + 5000 + 100
     window = np.frombuffer(mixed_corpus(size, seed=9), np.uint8)
     table = native.build_match_table(window, 100).astype(np.int32)
     lit, off = _lengths(9)
     got = parse_torch.optimize_matches(lit, off, window, table, 100, size, device="cpu")
     np.testing.assert_array_equal(got, optimize_matches_jax(lit, off, window, table, 100, size))
+
+
+def test_random_2m_lane_equals_scan():
+    """One block of 2^21 random bytes (MAX_LANE, a 2 MiB block) under
+    literal codes of 10 to 14 bits: its parse costs more than 2^24 bits,
+    where the Pallas DP's clamp (2^24 - 1) would act. The plain form, like
+    the kernel, clamps nothing, and its choices equal the scan DP's."""
+    size = dp_cuda.MAX_LANE + 100
+    window = np.frombuffer(random_bytes(size, 13), np.uint8)
+    table = native.build_match_table(window, 100).astype(np.int32)
+    rng = np.random.default_rng(13)
+    lit = rng.integers(10, 15, 288).astype(np.int32)
+    off = rng.integers(2, 12, 32).astype(np.int32)
+    got = parse_torch.optimize_matches(lit, off, window, table, 100, size, device="cpu")
+    np.testing.assert_array_equal(got, optimize_matches_jax(lit, off, window, table, 100, size))
+    literals, p = 0, 100
+    while p < size:  # the chosen parse's literals cost at least 10 bits each
+        step = int(got[p, 0])
+        literals += step == 0
+        p += max(step, 1)
+    assert 10 * literals > 1 << 24

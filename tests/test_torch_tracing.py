@@ -12,6 +12,7 @@ the host orchestration, off by default. On the CPU:
 - the program counters follow the ``MAX_PROGRAMS`` policy exactly;
 - the padding counters equal their formulas, at a lane narrowed to
   its input too;
+- the DP's counters count the planner's lanes past ``LONG_LANE``;
 - the counters stay whole under two planning threads.
 
 Every test turns the tracer off again at its end."""
@@ -24,8 +25,8 @@ import pytest
 import torch
 
 from zultra_tpu_torch import device_pipeline, ops, profiling
-from zultra_tpu_torch.corpus import mixed_corpus
-from zultra_tpu_torch.ops import programs
+from zultra_tpu_torch.corpus import mixed_corpus, random_bytes, text_corpus
+from zultra_tpu_torch.ops import block_torch, programs
 from zultra_tpu_torch.ops.block_torch import padded_lanes, plan_buckets
 from zultra_tpu_torch.ops.matchfinder_torch import HALO, SEG_CORE
 from zultra_tpu_torch.ops.split_torch import split_bucket
@@ -236,6 +237,20 @@ def test_padding_counters_equal_their_formulas(size, block, width, two_windows):
         assert 100 * (1 - c["match.input"] / c["match.positions"]) > 90
     else:
         assert c["match.input"] == c["match.positions"]
+
+
+def test_dp_counters_count_long_lanes(monkeypatch):
+    """With LONG_LANE lowered to 4000, a window of 20,000 B of text and
+    12,768 random bytes plans lanes of 2965, 17,058 and 12,745
+    positions: dp.long_lanes and dp.long_positions count the two past
+    4000, and their positions."""
+    monkeypatch.setattr(block_torch, "LONG_LANE", 4000)
+    data = text_corpus(20000, 8) + random_bytes(MBS - 20000, 8)
+    out, report, lanes = _traced(data)
+    assert zlib.decompress(out, 31) == data
+    assert sorted(ln for call in lanes for _, _, ln in call) == [2965, 12745, 17058]
+    c = report["counters"]
+    assert (c["dp.long_lanes"], c["dp.long_positions"]) == (2, 12745 + 17058)
 
 
 def test_counters_whole_under_two_threads(two_windows):

@@ -38,7 +38,7 @@ _LL = ctypes.c_longlong
 # unless noted.
 _SIGNATURES = {
     "zt_walk": [_VP] * 4 + [_I] * 5 + [_VP],
-    "zt_dp": [_VP] * 9 + [_I] * 5 + [_VP],
+    "zt_dp": [_VP] * 9 + [_I] * 4 + [_VP],
     "zt_chain": [_VP] * 6 + [_I] * 4 + [_VP],
     "zt_mk12": [_VP, _VP, _VP, _I, _I, _I, _VP],
     "zt_kraft": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],

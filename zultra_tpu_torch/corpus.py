@@ -2,10 +2,11 @@
 
 ``mixed_corpus`` interleaves word-salad text with binary-like records
 (little-endian integer tables with small deltas, repeated structs with a
-few varying fields), ``random_bytes`` is incompressible; both are made
-from a numpy seed alone and read no file, so every machine builds the
-same bytes. ``from_recipe`` builds either from a JSON-able
-[name, size, seed] triple (the form ``smoke_golden.json`` records).
+few varying fields), ``text_corpus`` is the word salad alone,
+``random_bytes`` is incompressible; all are made from a numpy seed alone
+and read no file, so every machine builds the same bytes. ``from_recipe``
+builds any of them from a JSON-able [name, size, seed] triple (the form
+``smoke_golden.json`` records).
 """
 
 from __future__ import annotations
@@ -90,12 +91,18 @@ def lz_data(size: int, seed: int, alpha: int = 256, p_match: float = 0.3) -> np.
     return out
 
 
+def text_corpus(size: int, seed: int = 0) -> bytes:
+    """``size`` bytes of word salad (the text of ``mixed_corpus``)."""
+    return _text(np.random.default_rng(seed), size)
+
+
 def random_bytes(size: int, seed: int = 0) -> bytes:
     """``size`` uniformly random bytes (incompressible: stored blocks)."""
     return np.random.default_rng(seed).integers(0, 256, size, np.uint8).tobytes()
 
 
-RECIPES = {"mixed_corpus": mixed_corpus, "random_bytes": random_bytes}
+RECIPES = {"mixed_corpus": mixed_corpus, "text_corpus": text_corpus,
+           "random_bytes": random_bytes}
 
 
 @functools.lru_cache(maxsize=2)

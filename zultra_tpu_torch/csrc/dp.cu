@@ -5,9 +5,9 @@
 // position p, from the lane's end down to 0:
 //   literal   lit[p] + cost[p+1]
 //   shorts    per slot, the cheapest truncation k = 3..sc of a match
-//             shorter than 40: one packed (min(varlen_k + cost[p+k],
-//             CLAMPX) << 6 | 63-k) prefix minimum, so the largest k wins
-//             ties, plus the slot's offset bits
+//             shorter than 40: one packed ((varlen_k + cost[p+k]) << 6 |
+//             63-k) prefix minimum, so the largest k wins ties, plus the
+//             slot's offset bits
 //   longs     per slot, lcs + cost[p+clamped] (0 past the block end)
 //   winner    the packed minimum of (cost*16 | candidate), candidates in
 //             the reference's order: literal, then slots 0..7
@@ -39,10 +39,15 @@
 //   3. Fix up (one warp per lane, top down): re-run sequentially each
 //      segment that is not anchored, from the ring the segment above
 //      holds, and check the segment below against the new costs.
-// The argument needs the clamp never to act: a literal costs at most 15
-// bits and a length symbol 20, so every cost stays below CLAMPX while the
-// lane is at most seq_limit = 1,118,479 positions long. A longer lane
-// runs as one sequential pass from its length in launch 3.
+// The argument needs exact integer sums. A literal costs at most 15 bits
+// and a length symbol 20, so on a lane of at most 2^21 positions (a 2 MiB
+// block, the largest; ops/dp_cuda.py MAX_LANE) every cost is at most
+// 15 * 2^21 and a packed short, (cost + 20) * 64 + 63, stays below 2^31;
+// INF = 2^26 stays above every real candidate. The TPU kernel clamps its
+// packed sums at 2^24 - 1, but runs only on blocks of up to 2^20
+// positions, where no sum reaches that; longer blocks take the JAX
+// package's scan DP, which has no clamp, as the reference has none. So
+// this kernel has none either, and every lane runs the same schedule.
 // A lane that never anchors (a long zero run, whose optimal parse is
 // phase-locked to the run's end) costs one sequential pass plus 1-2.
 
@@ -53,7 +58,7 @@ namespace {
 
 constexpr int INF = 1 << 26;
 constexpr int INF16 = 0x7FFF;
-constexpr int CLAMPX = (1 << 24) - 1;
+constexpr int MAX_LANE = 1 << 21;
 constexpr int MIN_MATCH = 3;
 constexpr int LEAVE_ALONE = 40;
 constexpr int NM = 8;
@@ -65,8 +70,7 @@ constexpr int CHECK_THREADS = 128;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
 // Segment status (ops/dp_cuda.py ST_*).
-constexpr int8_t ST_NONE = 0, ST_EXACT = 1, ST_ANCHORED = 2, ST_SPECULATED = 3, ST_RERUN = 4,
-                 ST_SEQUENTIAL = 5;
+constexpr int8_t ST_NONE = 0, ST_EXACT = 1, ST_ANCHORED = 2, ST_SPECULATED = 3, ST_RERUN = 4;
 
 struct Lane {
   const int32_t* lit;
@@ -121,7 +125,7 @@ __device__ __forceinline__ int dp_step(const Pos& in, const int (&vl)[NS], int* 
   int run = 0x7FFFFFFF;
 #pragma unroll
   for (int k = MIN_MATCH; k < LEAVE_ALONE; ++k) {
-    const int x = min(vl[k - MIN_MATCH] + t[k - MIN_MATCH], CLAMPX);
+    const int x = vl[k - MIN_MATCH] + t[k - MIN_MATCH];
     run = min(run, x * 64 + (63 - k));
     pm[(k - MIN_MATCH) * stride] = run;
   }
@@ -201,7 +205,7 @@ __global__ void __launch_bounds__(SPEC_THREADS)
                    const int32_t* __restrict__ length, int32_t* __restrict__ out,
                    int32_t* __restrict__ cost, int32_t* __restrict__ warm,
                    int8_t* __restrict__ status, int B, int n, int nseg, int seg, int wlen,
-                   int wstride, int seq_limit) {
+                   int wstride) {
   __shared__ int s_ring[RING * SPEC_THREADS];
   __shared__ int s_pm[NS * SPEC_THREADS];
   const int g = blockIdx.x * SPEC_THREADS + threadIdx.x;
@@ -212,8 +216,8 @@ __global__ void __launch_bounds__(SPEC_THREADS)
   const int a = (g % nseg) * seg;
   const int b = min(a + seg, L);
   for (int p = max(a, L); p < min(a + seg, n); ++p) ln.out[p] = 0;
-  if (a >= L || L > seq_limit) {
-    status[g] = a >= L ? ST_NONE : ST_SEQUENTIAL;
+  if (a >= L) {
+    status[g] = ST_NONE;
     return;
   }
   const int top = min(b + wlen, L);
@@ -243,8 +247,8 @@ __global__ void __launch_bounds__(32)
                     const int32_t* __restrict__ p2, const int32_t* __restrict__ varlen40,
                     const int32_t* __restrict__ length, int32_t* __restrict__ out,
                     int32_t* __restrict__ cost, const int32_t* __restrict__ warm,
-                    int8_t* __restrict__ status, int n, int nseg, int seg, int wlen, int wstride,
-                    int seq_limit) {
+                    int8_t* __restrict__ status, int n, int nseg, int seg, int wlen,
+                    int wstride) {
   __shared__ int f_ring[RING];
   __shared__ int f_pm[NS];
   const int lane = blockIdx.x;
@@ -264,10 +268,6 @@ __global__ void __launch_bounds__(32)
     __syncwarp();
   };
 
-  if (L > seq_limit) {
-    rerun(0, L);
-    return;
-  }
   bool above = false;  // the segment above was re-run
   for (int s = (L + seg - 1) / seg - 1; s >= 0; --s) {
     if (above) {
@@ -305,8 +305,9 @@ __global__ void __launch_bounds__(32)
 
 extern "C" int zt_dp(const void* lit, const void* p1, const void* p2, const void* varlen40,
                      const void* length, void* out, void* cost, void* warm, void* status, int B,
-                     int n, int seg, int wlen, int seq_limit, void* stream) {
+                     int n, int seg, int wlen, void* stream) {
   if (B <= 0 || n <= 0) return (int)cudaGetLastError();
+  if (n > MAX_LANE) return (int)cudaErrorInvalidValue;  // the sums' int32 bound
   // A re-run's taps and a segment's check lie in the one segment above.
   if (seg < TAPS || wlen < 0 || wlen > seg) return (int)cudaErrorInvalidValue;
   const int nseg = (n + seg - 1) / seg;
@@ -323,14 +324,13 @@ extern "C" int zt_dp(const void* lit, const void* p1, const void* p2, const void
   int32_t* w = (int32_t*)warm;
   int8_t* s = (int8_t*)status;
   dp_spec_kernel<<<(total + SPEC_THREADS - 1) / SPEC_THREADS, SPEC_THREADS, 0, st>>>(
-      l, a, b, v, len, o, c, w, s, B, n, nseg, seg, wlen, wstride, seq_limit);
+      l, a, b, v, len, o, c, w, s, B, n, nseg, seg, wlen, wstride);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dp_check_kernel<<<(total + CHECK_THREADS - 1) / CHECK_THREADS, CHECK_THREADS, 0, st>>>(
       c, w, s, B, n, nseg, seg, wlen, wstride);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dp_fixup_kernel<<<B, 32, 0, st>>>(l, a, b, v, len, o, c, w, s, n, nseg, seg, wlen, wstride,
-                                    seq_limit);
+  dp_fixup_kernel<<<B, 32, 0, st>>>(l, a, b, v, len, o, c, w, s, n, nseg, seg, wlen, wstride);
   return (int)cudaGetLastError();
 }

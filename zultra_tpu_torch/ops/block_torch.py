@@ -405,7 +405,21 @@ def plan_blocks_device_multi(win_stack, lens_stack, offs_stack, lanes, tok_stack
                 profiling.count("plan.buckets")
                 profiling.count("plan.positions", meta.shape[1] * n_pad)
                 profiling.count("plan.input", sum(lanes[i][2] for i in idxs))
+                count_long_lanes([lanes[i][2] for i in idxs])
     return plans
+
+
+# Lanes past this (1 MiB, the default largest block) come only from block
+# sizes above the default; the tracer counts them.
+LONG_LANE = 1 << 20
+
+
+def count_long_lanes(lengths) -> None:
+    """The tracer's ``dp.long_lanes`` and ``dp.long_positions`` of one
+    bucket: its lanes longer than LONG_LANE, and their positions."""
+    long = [n for n in lengths if n > LONG_LANE]
+    profiling.count("dp.long_lanes", len(long))
+    profiling.count("dp.long_positions", sum(long))
 
 
 def plan_blocks_device(win, lens, offs, block_spans) -> list:

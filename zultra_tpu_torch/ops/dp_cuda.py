@@ -32,11 +32,15 @@ are the true ones; INF = 2^26 stays above every real candidate. A
 segment whose run starts at the lane's length starts from the true
 boundary; a segment that does not anchor is re-run from the ring of the
 segment above, and the one below it is checked again. The argument
-needs the clamp min(., CLAMPX) never to act: a literal costs at most 15
-bits (code lengths <= 15) and a length symbol at most 20, so on a lane
-of L positions every cost is at most 15 L and every clamped sum at most
-15 L + 20 <= CLAMPX for L <= SEQ_LIMIT = 1,118,479. Longer lanes (block
-sizes up to 2 MiB) run as one sequential pass from their length.
+needs exact integer sums: a literal costs at most 15 bits (code lengths
+<= 15) and a length symbol at most 20, so on a lane of at most MAX_LANE
+= 2^21 positions (a 2 MiB block, the largest) every cost is at most
+15 * 2^21 and a packed short, (cost + 20) * 64 + 63, stays below 2^31.
+Every lane, whatever its length, runs the same schedule. The TPU kernel
+clamps its packed sums at 2^24 - 1, but runs only on blocks of up to
+2^20 positions (block_jax.DP_PALLAS_MAX_N), where no sum reaches that;
+longer blocks take its scan DP, which has no clamp, nor has the
+reference. Neither have the kernel and its plain forms here.
 """
 
 from __future__ import annotations
@@ -58,7 +62,6 @@ from .tables import device_tables
 INF = 1 << 26
 INF16 = 0x7FFF
 BIG = 1 << 30
-CLAMPX = (1 << 24) - 1
 N_SHORT = LEAVE_ALONE_MATCH_SIZE - MIN_MATCH_SIZE  # 37 truncation lengths
 I32 = torch.int32
 I64 = torch.int64
@@ -66,12 +69,10 @@ I64 = torch.int64
 TAPS = 258  # cost[p] reads cost[p + 1 .. p + 258]
 SEG = 1024  # positions per segment
 WARM = 512  # warm-up positions above each segment
-# Lanes longer than this run as one sequential pass: below it no cost can
-# reach CLAMPX (a literal costs at most 15 bits, a length symbol 20), so
-# the clamp never acts and a uniform shift of the costs changes no choice.
-SEQ_LIMIT = (CLAMPX - 20) // 15
+# The longest lane: a 2 MiB block. Past it the packed sums could pass 2^31.
+MAX_LANE = 1 << 21
 # Segment status, as the kernel leaves it.
-ST_NONE, ST_EXACT, ST_ANCHORED, ST_SPECULATED, ST_RERUN, ST_SEQUENTIAL = range(6)
+ST_NONE, ST_EXACT, ST_ANCHORED, ST_SPECULATED, ST_RERUN = range(5)
 
 
 def varlen_tables(lit_lens: torch.Tensor) -> torch.Tensor:
@@ -132,19 +133,20 @@ def check_segments(seg: int, warm: int) -> None:
         raise ValueError(f"dp: need seg >= {TAPS} and 0 <= warm <= seg, got {seg}, {warm}")
 
 
-def dp_choices(lit, p1, p2, varlen40, length, *, status=False, seg=SEG, warm=WARM,
-               seq_limit=SEQ_LIMIT):
+def dp_choices(lit, p1, p2, varlen40, length, *, status=False, seg=SEG, warm=WARM):
     """Packed choices (B, n) int32: chosen_len | slot << 9. ``length``
     (B,) int32 gives each lane's end; every position at or past it must
     hold lit 0 (``prep_lanes`` makes it so) and gets choice 0. With
     ``status=True`` also returns the (B, ceil(n / seg)) int8 segment
     status (``ST_*``). A CPU tensor takes the plain forms: the
     sequential recurrence, or the schedule's model when the status is
-    asked for."""
+    asked for. Lanes wider than MAX_LANE are refused."""
     check_segments(seg, warm)
+    if lit.shape[-1] > MAX_LANE:
+        raise ValueError(f"dp: lanes of {lit.shape[-1]} positions, past {MAX_LANE}")
     if lit.device.type == "cpu":
         if status:
-            return dp_segments_model(lit, p1, p2, varlen40, length, seg, warm, seq_limit)
+            return dp_segments_model(lit, p1, p2, varlen40, length, seg, warm)
         return dp_choices_plain(lit, p1, p2, varlen40)
     _build.check_cuda("dp lit", lit, I32, 2)
     _build.check_cuda("dp p1", p1, I32, 3)
@@ -162,7 +164,7 @@ def dp_choices(lit, p1, p2, varlen40, length, *, status=False, seg=SEG, warm=WAR
     st = torch.empty((B, nseg), dtype=torch.int8, device=lit.device)
     _build.launch("zt_dp", lit.data_ptr(), p1.data_ptr(), p2.data_ptr(), varlen40.data_ptr(),
                   length.data_ptr(), out.data_ptr(), cost.data_ptr(), warm_costs.data_ptr(),
-                  st.data_ptr(), B, n, seg, warm, seq_limit)
+                  st.data_ptr(), B, n, seg, warm)
     count_launch("dp")
     return (out, st) if status else out
 
@@ -197,7 +199,7 @@ def _dp_span(lit, p1, p2, vl, lo, hi, top):
         pm = []
         run = 1 << 62
         for k in range(MIN_MATCH_SIZE, MIN_MATCH_SIZE + need + 1):
-            x = min(vl[k - MIN_MATCH_SIZE] + cost[i + k], CLAMPX)
+            x = vl[k - MIN_MATCH_SIZE] + cost[i + k]
             run = min(run, x * 64 + 63 - k)
             pm.append(run)
         key = (lit[p] + cost[i + 1]) * 16
@@ -236,7 +238,7 @@ def _anchored(warm_costs, costs) -> bool:
     return False
 
 
-def dp_segments_model(lit, p1, p2, varlen40, length, seg=SEG, warm=WARM, seq_limit=SEQ_LIMIT):
+def dp_segments_model(lit, p1, p2, varlen40, length, seg=SEG, warm=WARM):
     """The kernel's schedule in plain Python, for the tests: (choices
     (B, n) int32, segment status (B, ceil(n / seg)) int8). Phase by
     phase as ``csrc/dp.cu`` runs it."""
@@ -248,16 +250,14 @@ def dp_segments_model(lit, p1, p2, varlen40, length, seg=SEG, warm=WARM, seq_lim
     for b in range(B):
         rows = (lit[b].tolist(), p1[b].tolist(), p2[b].tolist(), varlen40[b].tolist())
         L = min(max(int(length[b]), 0), n)
-        o, s = _model_lane(rows, L, seg, warm, seq_limit)
+        o, s = _model_lane(rows, L, seg, warm)
         out[b, :L] = torch.tensor(o, dtype=I32)
         st[b, : len(s)] = torch.tensor(s, dtype=torch.int8)
     return out.to(lit.device), st.to(lit.device)
 
 
-def _model_lane(rows, L, seg, warm, seq_limit):
+def _model_lane(rows, L, seg, warm):
     k = -(-L // seg)
-    if L > seq_limit:  # costs could pass CLAMPX: one exact sequential run
-        return _dp_span(*rows, 0, L, [0] * TAPS)[1], [ST_SEQUENTIAL] * k
     cost, out, warm_costs, st = [0] * L, [0] * L, [None] * k, [0] * k
     bounds = [(s * seg, min(s * seg + seg, L)) for s in range(k)]
     # 1. Speculate: every segment from a zero ring at min(b + warm, L).

@@ -9,14 +9,9 @@ The counterpart of zultra_tpu/ops/parse_jax.py (``optimize_matches_jax``
 ``_dp_wavefront_batch`` :347). The scan, the tiles and the tile size are
 TPU formulations of one function; the port computes it with the DP it
 already has, ``dp_cuda.run_dp``: the lane preparation (K11) and the DP
-kernel (B2) on the card, their plain forms on the CPU. Lanes longer than
-``dp_cuda.SEQ_LIMIT`` run as one sequential pass in the kernel.
-
-Exact while every DP cost stays below ``dp_cuda.CLAMPX`` (2^24 - 1),
-where the kernel clamps its packed minima as the JAX package's Pallas DP
-does and the scan does not: always on lanes up to SEQ_LIMIT positions
-with code lengths up to 15, and on longer lanes whenever the lane's
-parse costs fewer than 2^24 - 20 bits.
+kernel (B2) on the card, their plain forms on the CPU. Like the scan,
+they clamp no sum, so the choices equal the scan's on every lane of up
+to ``dp_cuda.MAX_LANE`` (2^21) positions; a longer block is refused.
 """
 
 from __future__ import annotations
