@@ -98,6 +98,7 @@ import argparse
 import hashlib
 import json
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -133,10 +134,13 @@ KERNELS = {
     "token_hist": ("zultra_tpu_torch/csrc/plan.cu", "zultra_tpu/ops/block_jax.py:170"),
     "emit_tokens": ("zultra_tpu_torch/csrc/plan.cu", "zultra_tpu/ops/block_jax.py:331"),
     "lex_order": ("zultra_tpu_torch/csrc/plan.cu", "zultra_tpu/ops/entropy_jax.py:77"),
+    # The suffix doubling's round (the JAX package's lax.sort round; no
+    # Pallas counterpart).
+    "suffix_round": ("zultra_tpu_torch/csrc/suffix.cu", "zultra_tpu/ops/suffix_jax.py:82"),
 }
 COMPRESS_KERNELS = ("walk", "dp", "chain", "mk12", "kraft", "rle_sweep", "rle_stats",
                     "prefix_tables", "prep_lanes", "token_hist", "emit_tokens",
-                    "lex_order")  # every compression's path
+                    "lex_order", "suffix_round")  # every compression's path
 # The kernel that no path of either package runs (tests and exports only).
 OFF_PATH_KERNELS = {
     "matchlen": ("zultra_tpu_torch/csrc/matchlen.cu", "zultra_tpu/ops/matchlen.py:34"),
@@ -306,6 +310,7 @@ def main() -> int:
         compress_device,
         frame,
         matchlen_hist_bench,
+        suffix_bench,
         walk_bench,
     )
     from zultra_tpu_torch.corpus import case_inputs, text_corpus
@@ -325,6 +330,8 @@ def main() -> int:
         reset_launch_counts,
         rle_cuda,
         split_torch,
+        suffix_cuda,
+        suffix_torch,
         walk_cuda,
     )
     from zultra_tpu_torch.ops.entropy_torch import (
@@ -598,6 +605,58 @@ def main() -> int:
               f"{row['bound_ms']:.4g} ms; chunk {row['chunk']}, scratch {row['scratch_bytes']} B")
         walk_rows.append(row)
     results["walk"] = dict(walk_rows[0], plain_device="cpu", rows=walk_rows)
+
+    # The doubling round: a 16-window batch of 1 MiB mixed windows (512
+    # segments of 65,794, the main path's) and one of 2 MiB text windows
+    # (1024), cut as the match program cuts them. The kernel's 17 rounds
+    # (8 stored) against the plain rounds on the card: the suffix order,
+    # the stored ranks, the rounds each segment ran. By events: the first
+    # round alone (it also sorts the symbols), each later round of the
+    # doubling (those that run and those every segment skips), a skip in
+    # place and a skip that copies its ranks (a stored level); beside them
+    # the plain round (plain_ms) and torch.sort of one round's packed keys
+    # (library_ms); the port calls neither on these rows.
+    def doubling_row(label, content, windows, block):
+        bufs = suffix_bench.batch(content, windows, block, dev)
+        S, n = bufs.shape
+        levels = suffix_torch.num_levels(n)
+        got = suffix_bench.kernel_rounds(bufs)
+        sa_p, ranks_p, flags = suffix_bench.plain_rounds(bufs)
+        flags = torch.stack(flags)
+        first = torch.where(flags.any(0), flags.to(torch.int32).argmax(0) + 1, levels)
+        err = max(compare(f"doubling_round [{label}] sa", got[0], sa_p),
+                  compare(f"doubling_round [{label}] ranks", got[1], ranks_p),
+                  compare(f"doubling_round [{label}] rounds run", got[2], first))
+        per_round = suffix_bench.per_round_ms(suffix_bench.kernel_rounds, bufs, levels)
+        ran = int(got[2].max())
+        state = suffix_cuda.new_state(S, n, dev)
+        symbols, out = bufs.to(torch.int32), torch.empty_like(ranks_p[0])
+        done, _ = suffix_torch.stored_rounds(bufs, 8)
+        done = suffix_torch.later_rounds(done, 8)
+        copy_to = torch.empty_like(done.rank)
+        keys = ranks_p[1].to(torch.int64) * (n + 257) + 1
+        row = dict(batch=label, shape=[S, n], max_abs_err=err, rounds=levels, rounds_run=ran,
+                   ms=cuda_ms(lambda: suffix_cuda.launch_round(symbols, out, state, 1, True), 3),
+                   round_ms=per_round, run_round_ms=statistics.mean(per_round[1:ran]),
+                   skip_ms=cuda_ms(lambda: suffix_cuda.launch_round(
+                       done.rank, done.rank, done.state, 1 << (levels - 1), False), 5),
+                   skip_copy_ms=cuda_ms(lambda: suffix_cuda.launch_round(
+                       done.rank, copy_to, done.state, 1 << 7, False), 5),
+                   plain_ms=cuda_ms(lambda: suffix_torch._round(ranks_p[1], 2), 3),
+                   library_ms=cuda_ms(lambda: torch.sort(keys, dim=1, stable=True), 3),
+                   bound_ms=bytes_ms(16 * S * n))
+        print(f"doubling_round [{label}]: equal on {S} x {n} (suffix order, 9 stored rank tables, "
+              f"rounds run: at most {ran} of {levels}); first round {row['ms']:.4f} ms, later "
+              f"rounds that run {row['run_round_ms']:.4f} ms each, a skipped round "
+              f"{row['skip_ms']:.4f} ms ({row['skip_copy_ms']:.4f} ms with its copy), plain "
+              f"round {row['plain_ms']:.4f} ms (cuda), torch.sort of its keys "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms; each round: "
+              + " ".join(f"{v:.3f}" for v in per_round))
+        return row
+
+    suffix_rows = [doubling_row(*shape) for shape in suffix_bench.SHAPES[:2]]
+    torch.cuda.empty_cache()
+    results["suffix_round"] = dict(suffix_rows[0], plain_device="cuda", rows=suffix_rows)
 
     # MK and Kraft at the main path's shapes. Histograms are the greedy
     # token histograms of the corpus cut into lanes: 4096 lanes of 1 KiB

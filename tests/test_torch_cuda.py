@@ -34,6 +34,8 @@ from zultra_tpu_torch.ops import (
     programs,
     rle_cuda,
     split_torch,
+    suffix_cuda,
+    suffix_torch,
     walk_cuda,
 )
 from zultra_tpu_torch.ops.entropy_torch import (
@@ -47,11 +49,14 @@ from zultra_tpu_torch.ops.entropy_torch import (
 from zultra_tpu_torch.ops.matchfinder_torch import (
     HALO,
     SEG_CORE,
+    SEG_LEN,
     build_segments,
     match_program,
     match_stacks,
     match_tables_device_stacked,
     salcp_batch,
+    segments_from_corpus,
+    upload_batch,
 )
 
 pytestmark = pytest.mark.cuda
@@ -1038,7 +1043,131 @@ def test_match_program_replay_equals_eager_and_cpu(cuda):
     rows = programs.replay_against_eager(cuda, fn=match_program)
     keys = [r["key"] for r in rows if dict(r["key"][2]) == {"W": 2, "k": 2}]
     assert len(keys) == 1
-    assert all(r["max_abs_err"] == 0 and r["launches"] == {"walk": 1} for r in rows), rows
+    assert all(r["max_abs_err"] == 0 and r["launches"] == {"walk": 1, "suffix_round": 17}
+               for r in rows), rows
+
+
+# ---------------------------------------------------------------------------
+# The doubling round (csrc/suffix.cu)
+# ---------------------------------------------------------------------------
+
+def _match_segments(content: str, W: int, mbs: int, dev, seed: int = 0) -> torch.Tensor:
+    """A batch's segments as the match program cuts them."""
+    make = mixed_corpus if content == "mixed" else text_corpus
+    corpus = np.frombuffer(make(W * mbs, seed=seed), np.uint8)
+    spans = [(i * mbs, (i + 1) * mbs) for i in range(W)]
+    corpus_dev, meta, W, k = upload_batch(corpus, spans, mbs, dev)
+    return segments_from_corpus(corpus_dev, meta[: W * k], SEG_LEN)
+
+
+def _plain_doubling(bufs: torch.Tensor, store: int = 8):
+    """The plain rounds on the card: (sa, stored ranks, rounds run as the
+    kernel counts them, the round after which each segment was distinct)."""
+    rank, rows, first = bufs.to(torch.int32), [bufs.to(torch.int32)], None
+    levels = suffix_torch.num_levels(bufs.shape[1])
+    run = torch.zeros(bufs.shape[0], dtype=torch.int32, device=bufs.device)
+    distinct = torch.zeros(bufs.shape[0], dtype=torch.bool, device=bufs.device)
+    for level in range(levels):
+        run += (~distinct).to(torch.int32)
+        sa, rank, distinct = suffix_torch._round(rank, 1 << level)
+        if level < store:
+            rows.append(rank)
+    return sa, torch.stack(rows), run
+
+
+@pytest.mark.parametrize("content,W,mbs", [("mixed", 16, 1 << 20), ("text", 16, 2 << 20),
+                                           ("text", 1, 48944)],
+                         ids=["mixed100m 512", "text32m 1024", "files48k 2"])
+def test_suffix_round_kernel_equals_plain_at_the_cells_shapes(cuda, content, W, mbs):
+    """The kernel's doubling (17 launches, 8 stored levels) on a batch of
+    each cell's shape equals the plain rounds: the suffix order, the 9
+    stored rank tables (a skipped segment's identity rows among them), the
+    rounds each segment ran; and the early exit equals the fixed form."""
+    bufs = _match_segments(content, W, mbs, cuda)
+    assert bufs.shape[1] == SEG_LEN
+    ops.reset_launch_counts()
+    got = suffix_torch.doubling_rounds_fixed(bufs, store_levels=8)
+    assert ops.launch_counts()["suffix_round"] == 17
+    want = _plain_doubling(bufs)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert int(got[2].max()) < 17  # every segment skips rounds
+    early = suffix_torch.doubling_rounds(bufs, store_levels=8)
+    for g, w in zip(early, got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kind", ["zero run", "random", "sentinels", "corpus windows"])
+def test_suffix_round_kernel_equals_model(cuda, kind):
+    """The zero run's segments (a large group every round, all 17 rounds
+    on the zeros), a random segment, an all-sentinel one and zero-padded
+    byte rows of 65,536 (the corpus statistics'): the kernel's doubling
+    with every level stored equals the plain rounds and the model's,
+    rounds run included."""
+    if kind == "zero run":
+        raw = mixed_corpus(8000, seed=3) + bytes(3 << 15) + mixed_corpus(24000, seed=4)
+        bufs, _ = build_segments(np.frombuffer(raw, np.uint8), [(0, len(raw))], SEG_CORE)
+        rows = torch.from_numpy(bufs[:4])
+    elif kind == "random":
+        raw = random_bytes(2 * SEG_CORE, seed=7)
+        bufs, _ = build_segments(np.frombuffer(raw, np.uint8), [(0, len(raw))], SEG_CORE)
+        rows = torch.from_numpy(bufs[:1])
+    elif kind == "sentinels":
+        rows = (256 + torch.arange(SEG_LEN, dtype=torch.int32))[None]
+    else:
+        host = np.zeros((2, 1 << 16), np.uint8)
+        host[0] = np.frombuffer(text_corpus(1 << 16, seed=8), np.uint8)
+        host[1, :40000] = np.frombuffer(mixed_corpus(40000, seed=9), np.uint8)
+        rows = torch.from_numpy(host.astype(np.int32))
+    sa, ranks, run = suffix_torch.doubling_rounds_fixed(rows.to(cuda))
+    sa_m, ranks_m, _, run_m = suffix_cuda.doubling_model(rows)
+    assert torch.equal(sa.cpu(), sa_m) and torch.equal(ranks.cpu(), ranks_m)
+    assert torch.equal(run.cpu(), run_m)
+    want = _plain_doubling(rows.to(cuda), store=ranks.shape[0] - 1)
+    assert torch.equal(sa, want[0]) and torch.equal(ranks, want[1])
+
+
+def test_suffix_round_kernel_rows_past_its_cap_take_the_plain_round(cuda):
+    """A row longer than the kernel takes goes through the plain round on
+    the card, counted by the tracer; its results equal the CPU's."""
+    from zultra_tpu_torch import profiling
+
+    n = suffix_cuda.MAX_N + 5
+    rows = torch.from_numpy(np.frombuffer(text_corpus(n, seed=12), np.uint8)
+                            .astype(np.int32))[None]
+    ops.reset_launch_counts()
+    profiling.reset()
+    profiling.enable()
+    try:
+        got = suffix_torch.doubling_rounds(rows.to(cuda))
+    finally:
+        profiling.enable(False)
+    assert ops.launch_counts()["suffix_round"] == 0
+    assert profiling.report(reset=True)["counters"]["suffix.plain_rounds"] >= 1
+    want = suffix_torch.doubling_rounds(rows)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_match_program_sorts_nothing_and_a_compression_launches_the_round(cuda, monkeypatch):
+    """The match program calls no torch.sort on the card, and a gzip
+    compression launches the doubling kernel."""
+    corpus = _corpus(70_000)
+    spans = [(0, 32768), (32768, 65536)]
+    corpus_dev, meta, W, k = upload_batch(corpus, spans, 32768, cuda)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.sort called in the match program")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch, "sort", refuse)
+        out = match_program(corpus_dev, meta, W=W, k=k)
+    want = match_program(corpus_dev.cpu(), meta.cpu(), W=W, k=k)
+    for g, w in zip(out, want):
+        assert torch.equal(g.cpu(), w)
+    ops.reset_launch_counts()
+    compress(bytes(corpus), 2, device=cuda)
+    assert ops.launch_counts()["suffix_round"] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -1300,7 +1429,8 @@ def test_staircase_on_the_card_equals_cpu_and_walk(cuda):
     rows = staircase_torch.sharded_rows(segbufs, [cuda], 16, core)
     assert torch.equal(rows.cpu(), walked)
     rows = programs.replay_against_eager(cuda, fn=staircase_torch.staircase_program)
-    assert rows and all(r["max_abs_err"] == 0 and not r["launches"] for r in rows), rows
+    assert rows and all(r["max_abs_err"] == 0 and r["launches"] == {"suffix_round": 17}
+                        for r in rows), rows
 
 
 def test_match_tables_for_spans_on_the_card(cuda):

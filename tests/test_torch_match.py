@@ -40,6 +40,6 @@ def test_suffix_array_matches_numpy_sort():
     rng = np.random.default_rng(4)
     data = rng.integers(0, 3, 700).astype(np.int32)
     buf = np.concatenate([data, 256 + np.arange(60, dtype=np.int32)])
-    sa, _ = doubling_rounds(torch.from_numpy(buf[None]), store_levels=8)
+    sa, _, _ = doubling_rounds(torch.from_numpy(buf[None]), store_levels=8)
     want = sorted(range(len(buf)), key=lambda i: buf[i:].tolist())
     assert sa[0].tolist() == want

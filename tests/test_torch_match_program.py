@@ -34,7 +34,7 @@ import zultra_tpu.device_pipeline as jax_pipeline
 from zultra_tpu.ops import matchfinder_jax, split_jax, suffix_jax
 from zultra_tpu_torch.corpus import lz_data, mixed_corpus
 from zultra_tpu_torch.ops import matchfinder_torch as mt
-from zultra_tpu_torch.ops import programs, suffix_torch, walk_cuda
+from zultra_tpu_torch.ops import programs, suffix_cuda, suffix_torch, walk_cuda
 
 from test_torch_programs import CAPTURED, StandInGraphs, _host_syncs
 
@@ -107,12 +107,13 @@ def zero_run_segments():
 def test_fixed_doubling_equals_early_exit_and_jax(zero_run_segments):
     bufs = zero_run_segments
     n = bufs.shape[1]
-    _, distinct, stored = suffix_torch.stored_rounds(bufs, 8)
+    st, stored = suffix_torch.stored_rounds(bufs, 8)
     assert stored.shape == (9, 4, n)
-    assert not bool(distinct.all()), "the zero run must need more than 8 rounds"
-    sa_fixed, ranks_fixed = suffix_torch.doubling_rounds_fixed(bufs, store_levels=8)
-    sa_early, ranks_early = suffix_torch.doubling_rounds(bufs, store_levels=8)
+    assert not bool(st.distinct.all()), "the zero run must need more than 8 rounds"
+    sa_fixed, ranks_fixed, run_fixed = suffix_torch.doubling_rounds_fixed(bufs, store_levels=8)
+    sa_early, ranks_early, run_early = suffix_torch.doubling_rounds(bufs, store_levels=8)
     assert torch.equal(sa_fixed, sa_early) and torch.equal(ranks_fixed, ranks_early)
+    assert torch.equal(run_fixed, run_early) and run_fixed.tolist()[2] == 17
     assert torch.equal(ranks_fixed, stored)
     levels = suffix_jax._num_levels(n)
     assert levels == suffix_torch.num_levels(n) == 17
@@ -151,8 +152,9 @@ def test_match_program_equals_jax(base, mbs, last, monkeypatch):
     spans = _spans(base, mbs, 2, last)
     lens_j, offs_j = matchfinder_jax.match_tables_device_stacked(corpus, spans, mbs)
     corpus_dev, meta, W, k = mt.upload_batch(corpus, spans, mbs, "cpu")
-    out = mt.match_program(corpus_dev, meta, W=W, k=k)
+    *out, run = mt.match_program(corpus_dev, meta, W=W, k=k)
     lens, offs, win = out
+    assert run.shape == (W * k,) and run.dtype == torch.int32
     assert lens.shape == offs.shape == (2, mt.HALO + k * mt.SEG_CORE, 8)
     assert win.shape == (2, mt.HALO + k * mt.SEG_CORE) and win.dtype == torch.uint8
     n_lane = mt.HALO + mbs
@@ -194,7 +196,7 @@ def test_shorter_last_window_or_dictionary_adds_no_program_key(monkeypatch):
 # The forms the program calls only on a CPU tensor, and host arithmetic on
 # shapes (Python ints, no tensor).
 CPU_ONLY = {"doubling_rounds", "walk_segments_plain"}
-SHAPE_ARITHMETIC = {"num_levels", "n_chunks"}
+SHAPE_ARITHMETIC = {"num_levels", "n_chunks", "fits"}
 
 
 def _reached(fn, modules, seen) -> None:
@@ -211,7 +213,7 @@ def _reached(fn, modules, seen) -> None:
 
 
 def test_match_program_functions_join_the_host_sync_guard():
-    modules = {m.__name__: m for m in (mt, suffix_torch, walk_cuda)}
+    modules = {m.__name__: m for m in (mt, suffix_torch, suffix_cuda, walk_cuda)}
     reached = {"match_program"}
     _reached(mt.match_program, modules, reached)
     guarded = {name for m in modules.values() for name in CAPTURED[m]}

@@ -51,6 +51,7 @@ from zultra_tpu_torch.ops import (
     rle_cuda,
     split_torch,
     staircase_torch,
+    suffix_cuda,
     suffix_torch,
     symbol_map,
     walk_cuda,
@@ -475,10 +476,11 @@ def test_cpu_tensors_call_the_function():
 # Every function that runs inside the match, planner or splitter program
 # on the card (the CPU-only forms it calls on a CPU tensor are not here).
 CAPTURED = {
-    matchfinder_torch: ("match_program", "segments_from_corpus", "_gather", "salcp_batch",
+    matchfinder_torch: ("match_program", "segments_from_corpus", "_gather", "salcp_rounds",
                         "assemble_lanes"),
-    suffix_torch: ("doubling_rounds_fixed", "stored_rounds", "later_rounds", "_round",
-                   "_sort_rerank", "adjacent_lcp", "pair_lcp"),
+    suffix_torch: ("doubling_rounds_fixed", "stored_rounds", "later_rounds", "_step", "_on_card",
+                   "_round", "_sort_rerank", "adjacent_lcp", "pair_lcp"),
+    suffix_cuda: ("new_state", "launch_round"),
     walk_cuda: ("walk_segments",),
     block_torch: ("plan_block_core", "token_starts", "token_hist",
                   "offset_workaround", "_match_bits", "post_optimize", "emit_tokens"),

@@ -13,6 +13,8 @@ the host orchestration, off by default. On the CPU:
 - the padding counters equal their formulas, at a lane narrowed to
   its input too;
 - the DP's counters count the planner's lanes past ``LONG_LANE``;
+- the doubling's counters: the rounds the match program launches, and
+  the kept rounds-run tensors summed at report time;
 - the counters stay whole under two planning threads.
 
 Every test turns the tracer off again at its end."""
@@ -21,12 +23,14 @@ import sys
 import threading
 import zlib
 
+import numpy as np
 import pytest
 import torch
 
 from zultra_tpu_torch import device_pipeline, ops, profiling
 from zultra_tpu_torch.corpus import mixed_corpus, random_bytes, text_corpus
-from zultra_tpu_torch.ops import block_torch, programs
+from zultra_tpu_torch.ops import block_torch, programs, suffix_torch
+from zultra_tpu_torch.ops import matchfinder_torch as mt
 from zultra_tpu_torch.ops.block_torch import padded_lanes, plan_buckets
 from zultra_tpu_torch.ops.matchfinder_torch import HALO, SEG_CORE
 from zultra_tpu_torch.ops.split_torch import split_bucket
@@ -237,6 +241,30 @@ def test_padding_counters_equal_their_formulas(size, block, width, two_windows):
         assert 100 * (1 - c["match.input"] / c["match.positions"]) > 90
     else:
         assert c["match.input"] == c["match.positions"]
+
+
+def test_doubling_round_counters(two_windows):
+    """``match.rounds``: the 17 rounds a segment the match program launches;
+    ``match.rounds_run``: the sum of its kept rounds-run tensors, the rounds
+    each segment ran before its ranks were distinct. Off, nothing is kept;
+    a reset drops what was."""
+    data, _, report, _, _ = two_windows
+    c = report["counters"]
+    assert c["match.rounds"] == 2 * 17
+    corpus = np.frombuffer(data, np.uint8)
+    want = 0
+    for span in ([(0, MBS)], [(MBS, 2 * MBS)]):
+        corpus_dev, meta, W, k = mt.upload_batch(corpus, span, MBS, "cpu")
+        bufs = mt.segments_from_corpus(corpus_dev, meta[: W * k], mt.SEG_LEN)
+        want += int(suffix_torch.doubling_rounds(bufs, store_levels=8)[2].sum())
+    assert c["match.rounds_run"] == want and 2 <= want < 2 * 17
+    profiling.keep("kept", torch.ones(3, dtype=torch.int32))  # off: not kept
+    assert "kept" not in profiling.report()["counters"]
+    profiling.enable()
+    profiling.keep("kept", torch.ones(3, dtype=torch.int32))
+    assert profiling.report()["counters"]["kept"] == 3
+    profiling.reset()
+    assert "kept" not in profiling.report()["counters"]
 
 
 def test_dp_counters_count_long_lanes(monkeypatch):

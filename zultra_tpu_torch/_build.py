@@ -52,6 +52,7 @@ _SIGNATURES = {
     "zt_token_hist": [_VP] * 6 + [_I] * 2 + [_LL] * 4 + [_VP],
     "zt_emit_tokens": [_VP] * 10 + [_I] * 2 + [_LL, _VP],
     "zt_lex_order": [_VP, _VP, _I, _I, _VP],
+    "zt_suffix_round": [_VP] * 7 + [_I] * 4 + [_VP],
 }
 
 

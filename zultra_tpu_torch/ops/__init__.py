@@ -3,8 +3,8 @@
 Huffman bundle, the splitter, the block planner, the DP's entry points,
 token emission, checksums, and the wrappers of the walk, DP, chain, MK,
 Kraft, matchlen, byte-histogram, RLE-sweep, RLE-statistics,
-prefix-table, DP lane preparation, token-histogram, token-emission and
-short-row order kernels. No kernel is built at package load (the first
+prefix-table, DP lane preparation, token-histogram, token-emission,
+short-row order and suffix-doubling kernels. No kernel is built at package load (the first
 CUDA launch builds them all).
 
 The exports are the counterparts of zultra_tpu/ops/__init__.py:17-30;
@@ -23,7 +23,7 @@ import threading
 # always of launches the device executed.
 KERNEL_NAMES = ("walk", "dp", "chain", "mk12", "kraft", "matchlen", "hist",
                 "rle_sweep", "rle_stats", "prefix_tables", "prep_lanes", "token_hist",
-                "emit_tokens", "lex_order")
+                "emit_tokens", "lex_order", "suffix_round")
 _counts = dict.fromkeys(KERNEL_NAMES, 0)
 _counts_lock = threading.Lock()
 _capturing = threading.local()  # .counts: the counts of this thread's capture, or None

@@ -55,7 +55,7 @@ from .. import profiling
 from ..matchfinder import find_all_matches
 from . import programs
 from .block_torch import to_device
-from .suffix_torch import adjacent_lcp, doubling_rounds, doubling_rounds_fixed
+from .suffix_torch import adjacent_lcp, doubling_rounds, doubling_rounds_fixed, num_levels
 from .walk_cuda import walk_segments
 
 HALO = MAX_OFFSET  # 32768 history bytes make segment rows exact
@@ -157,18 +157,25 @@ def segments_from_corpus(corpus_dev: torch.Tensor, seg_meta: torch.Tensor,
 
 
 def salcp_batch(bufs: torch.Tensor) -> torch.Tensor:
+    """SA | clamped adjacent LCP << LCP_SHIFT in rank order, per segment:
+    the walk's input (``salcp_rounds`` without its count)."""
+    return salcp_rounds(bufs)[0]
+
+
+def salcp_rounds(bufs: torch.Tensor):
     """SA | clamped adjacent LCP << LCP_SHIFT in rank order, per segment
-    (the walk's input). LCPs clamp at MAX_MATCH_SIZE, so rank tables up
-    to 256-grams suffice (256 + 128 + ... + 1 >= 258). On the card the
-    doubling runs its fixed count of rounds (no host sync: a graph holds
-    it); on the CPU it stops once every rank is distinct. Both give the
-    same words."""
+    (the walk's input), and the doubling rounds each segment ran (S,)
+    int32. LCPs clamp at MAX_MATCH_SIZE, so rank tables up to 256-grams
+    suffice (256 + 128 + ... + 1 >= 258). On the card the doubling launches
+    its fixed count of rounds (no host sync: a graph holds it), and a
+    segment whose ranks are distinct skips the rest; on the CPU it stops
+    once every rank is distinct. Both give the same words and counts."""
     rounds = doubling_rounds_fixed if bufs.is_cuda else doubling_rounds
-    sa, ranks = rounds(bufs, store_levels=8)
+    sa, ranks, run = rounds(bufs, store_levels=8)
     raw = adjacent_lcp(sa, ranks)
     clamped = torch.where(raw < MIN_MATCH_SIZE, 0, torch.clamp(raw, max=MAX_MATCH_SIZE))
     lcp_at_rank = torch.cat([torch.zeros_like(clamped[:, :1]), clamped], dim=1)
-    return sa | (lcp_at_rank << LCP_SHIFT)
+    return sa | (lcp_at_rank << LCP_SHIFT), run
 
 
 def assemble_lanes(rows: torch.Tensor, corpus_dev: torch.Tensor, win_meta: torch.Tensor,
@@ -194,10 +201,12 @@ def match_program(corpus_dev: torch.Tensor, meta: torch.Tensor, *, W: int, k: in
     """A batch's whole match stage on the device, from ``upload_batch``'s
     copy: segments, suffix arrays and rank tables (8 stored levels),
     adjacent LCPs, the walk kernel, the lanes. -> (lens, offs, win) as
-    ``assemble_lanes`` gives them, lanes HALO + k*SEG_CORE wide."""
+    ``assemble_lanes`` gives them, lanes HALO + k*SEG_CORE wide, and the
+    doubling rounds each of the W*k segments ran (W*k,) int32."""
     bufs = segments_from_corpus(corpus_dev, meta[: W * k], SEG_LEN)
-    rows = walk_segments(salcp_batch(bufs), HALO, SEG_CORE)  # (W*k, SEG_CORE, 8)
-    return assemble_lanes(rows, corpus_dev, meta[W * k :], W, k)
+    salcp, run = salcp_rounds(bufs)
+    rows = walk_segments(salcp, HALO, SEG_CORE)  # (W*k, SEG_CORE, 8)
+    return (*assemble_lanes(rows, corpus_dev, meta[W * k :], W, k), run)
 
 
 def match_stacks(corpus: np.ndarray, spans, mbs: int, device):
@@ -209,14 +218,19 @@ def match_stacks(corpus: np.ndarray, spans, mbs: int, device):
     every other row and byte is zero. Every span but the last must be
     exactly ``mbs`` long, and the spans must follow one another. One copy
     to the device, then ``match_program`` (a graph replay on the card
-    once its shape has come twice)."""
+    once its shape has come twice). While tracing is on it counts the
+    doubling rounds the program launches for its segments
+    (``match.rounds``) and keeps the tensor of rounds they ran, which
+    ``profiling.report`` sums into ``match.rounds_run``."""
     with profiling.span("zultra.match"):
         corpus_dev, meta, W, k = upload_batch(np.asarray(corpus, dtype=np.uint8), spans, mbs,
                                               device)
-        lens, offs, win = programs.run(match_program, corpus_dev, meta, W=W, k=k)
+        lens, offs, win, run = programs.run(match_program, corpus_dev, meta, W=W, k=k)
     if profiling.enabled():
         profiling.count("match.positions", W * k * SEG_CORE)
         profiling.count("match.input", sum(hi - lo for lo, hi in spans))
+        profiling.count("match.rounds", W * k * num_levels(SEG_LEN))
+        profiling.keep("match.rounds_run", run)
     n_lane = HALO + mbs
     return lens[:, :n_lane], offs[:, :n_lane], win[:, :n_lane]
 

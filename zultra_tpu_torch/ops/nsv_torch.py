@@ -161,7 +161,7 @@ def lcp_pairs(data, i_positions, j_positions, device="cuda") -> torch.Tensor:
     i_pos = _int32(i_positions, arr.device)
     j_pos = _int32(j_positions, arr.device)
     n = int(arr.shape[0])
-    _, ranks = doubling_rounds(arr[None])
+    _, ranks, _ = doubling_rounds(arr[None])
     lcp = pair_lcp(ranks, i_pos[None], j_pos[None])[0]
     return torch.where(i_pos == j_pos, n - i_pos, lcp)
 

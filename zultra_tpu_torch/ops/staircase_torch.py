@@ -88,7 +88,7 @@ def _staircase_rows(bufs: torch.Tensor, budget_factor: int):
     S, n = bufs.shape
     dev = bufs.device
     rounds = doubling_rounds_fixed if bufs.is_cuda else doubling_rounds
-    sa, ranks = rounds(bufs.to(I32), store_levels=8)  # LCPs clamp at 258 <= 256 + 128 + ... + 1
+    sa, ranks, _ = rounds(bufs.to(I32), store_levels=8)  # LCPs clamp at 258 <= 256 + 128 + ... + 1
     pos = sa  # pos[r] = position of rank r
 
     # L[r] = clamped lcp of ranks r - 1 and r; L[0] = L[n] = 0.

@@ -1,12 +1,22 @@
 """Prefix-doubling suffix arrays and rank tables for a batch of segments.
 
 Manber-Myers doubling: ceil(log2 n) rounds of (sort by (rank_i,
-rank_{i+k}), re-rank). Each round is one stable sort of packed int64
-keys over every segment of the batch at once, a compare, a cumsum and a
-scatter back to position order. Port of zultra_tpu.ops.suffix_jax's
-``_num_levels`` and ``_doubling_rounds``; the suffix array is unique, so
-both produce the same permutation. ``suffix_array`` and ``plcp`` port
-``suffix_array_jax`` and ``plcp_jax`` (one byte string, numpy out).
+rank_{i+k}), re-rank). Port of zultra_tpu.ops.suffix_jax's ``_num_levels``
+and ``_doubling_rounds``; the suffix array is unique, so both produce the
+same permutation. ``suffix_array`` and ``plcp`` port ``suffix_array_jax``
+and ``plcp_jax`` (one byte string, numpy out).
+
+Two routes for a round, by the rows' length alone. On the card, rows of
+up to ``suffix_cuda.MAX_N`` positions take the kernel ``csrc/suffix.cu``
+(``suffix_cuda.launch_round``), which updates each segment's order group
+by group and skips a segment whose ranks are already distinct. Every
+other call takes the plain round ``_round``: one stable sort of packed
+int64 keys over every segment at once, a compare, a cumsum and a
+scatter back to position order (a CPU tensor, and on the card longer
+rows, counted as ``suffix.plain_rounds`` by the tracer). Both give the
+same suffix order, dense ranks and flags, bit for bit; the rounds run
+per segment (``Doubling.run``) count a round on a segment whose ranks
+were not yet distinct, as the kernel runs it.
 
 Two forms of the rounds past the stored ones: ``doubling_rounds`` stops
 once every rank is distinct (a host sync a round, as the JAX package's
@@ -26,9 +36,26 @@ unique one, for bytes with zero padding as for unique sentinels.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .. import profiling
+from .suffix_cuda import fits, launch_round, new_state
+
+
+class Doubling(NamedTuple):
+    """The doubling after its newest round: the suffix order (S, n) int32,
+    its ranks in position order (S, n) int32, whether each segment's ranks
+    are all distinct (S,) bool, and the rounds each segment ran (S,)
+    int32. ``state``: the kernel's (``suffix_cuda.new_state``), which it
+    updates in place round after round; None on the plain route."""
+    sa: torch.Tensor
+    rank: torch.Tensor
+    distinct: torch.Tensor
+    run: torch.Tensor
+    state: tuple | None = None
 
 
 def num_levels(n: int) -> int:
@@ -63,54 +90,86 @@ def _round(rank: torch.Tensor, k: int):
     return _sort_rerank(rank, rank2, n + 257)
 
 
+def _on_card(rank: torch.Tensor) -> bool:
+    """The kernel's route: a CUDA tensor of rows it takes."""
+    return rank.is_cuda and fits(rank.shape[1])
+
+
+def _step(st: Doubling | None, rank: torch.Tensor, level: int, out: torch.Tensor) -> Doubling:
+    """Round ``level`` (k = 2^level) on ``rank``, the first when ``st`` is
+    None. The kernel writes its ranks to ``out`` (``rank`` itself allowed
+    past the first round); the plain round makes a new tensor."""
+    if _on_card(rank):
+        state = new_state(*rank.shape, rank.device) if st is None else st.state
+        launch_round(rank, out, state, 1 << level, st is None)
+        sa, _, distinct, run, _ = state
+        return Doubling(sa, out, distinct, run, state)
+    if rank.is_cuda:
+        profiling.count("suffix.plain_rounds")
+    sa, new_rank, distinct = _round(rank, 1 << level)
+    if st is None:
+        run = torch.ones_like(distinct, dtype=torch.int32)
+    else:
+        run = st.run + (~st.distinct).to(torch.int32)
+    return Doubling(sa, new_rank, distinct, run)
+
+
 def stored_rounds(data: torch.Tensor, store_levels: int | None = None):
     """The first rounds, whose ranks are kept: min(store_levels,
-    num_levels(n)) of them (all with None). -> (sa, distinct, ranks
+    num_levels(n)) of them (all with None). -> (Doubling after them, ranks
     (stored + 1, S, n) int32), ranks[l] comparing 2^l-grams."""
     levels = num_levels(data.shape[1])
     store = levels if store_levels is None else min(store_levels, levels)
     rank = data.to(torch.int32)
-    rows = [rank]
-    sa = distinct = None
+    ranks = torch.empty((store + 1, *rank.shape), dtype=torch.int32, device=rank.device)
+    ranks[0] = rank
+    st = None
     for level in range(store):
-        sa, rank, distinct = _round(rank, 1 << level)
-        rows.append(rank)
-    return sa, distinct, torch.stack(rows)
+        out = ranks[level + 1]
+        st = _step(st, ranks[level], level, out)
+        if st.rank is not out:  # the plain round's new tensor
+            out.copy_(st.rank)
+    return st, ranks
 
 
-def later_rounds(sa: torch.Tensor, rank: torch.Tensor, level: int) -> torch.Tensor:
+def later_rounds(st: Doubling, level: int) -> Doubling:
     """Rounds ``level`` .. num_levels(n) - 1, every one of them, with no
-    test of the ranks: nothing here waits for the device. -> sa."""
-    for lv in range(level, num_levels(rank.shape[1])):
-        sa, rank, _ = _round(rank, 1 << lv)
-    return sa
+    test of the ranks: nothing here waits for the device. The first writes
+    new ranks (``st.rank`` may be a stored row); the kernel updates them in
+    place after it."""
+    for lv in range(level, num_levels(st.rank.shape[1])):
+        st = _step(st, st.rank, lv, st.rank if lv > level else torch.empty_like(st.rank))
+    return st
 
 
 def doubling_rounds(data: torch.Tensor, store_levels: int | None = None):
     """data: (S, n) int32 symbols, each below 256 + n (bytes plus unique
-    sentinels). Returns (sa (S, n) int32, ranks (store+1, S, n) int32)
-    where ranks[l] compares 2^l-grams (ranks[0] is the data itself).
+    sentinels). Returns (sa (S, n) int32, ranks (store+1, S, n) int32,
+    rounds run (S,) int32) where ranks[l] compares 2^l-grams (ranks[0] is
+    the data itself).
 
     Rounds past ``store_levels`` stop as soon as every segment's ranks are
     distinct (further rounds are identities), which the host learns by
     waiting for the device after each of them: the form for the CPU and
     for one-off calls (``suffix_array``, ``plcp``, the corpus statistics).
     ``doubling_rounds_fixed`` runs them all and never waits."""
-    sa, distinct, ranks = stored_rounds(data, store_levels)
-    rank, level = ranks[-1], ranks.shape[0] - 1
-    while level < num_levels(data.shape[1]) and not bool(distinct.all()):
-        sa, rank, distinct = _round(rank, 1 << level)
+    st, ranks = stored_rounds(data, store_levels)
+    level = first = ranks.shape[0] - 1
+    while level < num_levels(data.shape[1]) and not bool(st.distinct.all()):
+        st = _step(st, st.rank, level, st.rank if level > first else torch.empty_like(st.rank))
         level += 1
-    return sa, ranks
+    return st.sa, ranks, st.run
 
 
 def doubling_rounds_fixed(data: torch.Tensor, store_levels: int | None = None):
     """``doubling_rounds`` with every one of its num_levels(n) rounds run:
-    the same (sa, ranks), since rounds past distinctness are identities,
-    and no host sync, so that a CUDA graph can hold it (the JAX package's
+    the same (sa, ranks, rounds run), since rounds past distinctness are
+    identities (the kernel skips them, the plain round repeats them), and
+    no host sync, so that a CUDA graph can hold it (the JAX package's
     ``lax.while_loop`` runs inside its jit)."""
-    sa, _, ranks = stored_rounds(data, store_levels)
-    return later_rounds(sa, ranks[-1], ranks.shape[0] - 1), ranks
+    st, ranks = stored_rounds(data, store_levels)
+    st = later_rounds(st, ranks.shape[0] - 1)
+    return st.sa, ranks, st.run
 
 
 def adjacent_lcp(sa: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
@@ -144,7 +203,7 @@ def suffix_array(data, device="cuda") -> np.ndarray:
     n = int(arr.shape[0])
     if n < 2:
         return np.zeros(n, dtype=np.int32)
-    sa, _ = doubling_rounds(torch.from_numpy(arr.astype(np.int32)).to(device)[None])
+    sa, _, _ = doubling_rounds(torch.from_numpy(arr.astype(np.int32)).to(device)[None])
     return sa[0].cpu().numpy()
 
 
@@ -155,7 +214,7 @@ def plcp(data, device="cuda") -> np.ndarray:
     n = int(arr.shape[0])
     if n < 2:
         return np.zeros(n, dtype=np.int32)
-    sa, ranks = doubling_rounds(torch.from_numpy(arr.astype(np.int32)).to(device)[None])
+    sa, ranks, _ = doubling_rounds(torch.from_numpy(arr.astype(np.int32)).to(device)[None])
     out = torch.zeros_like(sa)
     out.scatter_(1, sa[:, 1:].to(torch.int64), adjacent_lcp(sa, ranks))
     return out[0].cpu().numpy()

@@ -47,7 +47,7 @@ def _window_step(windows: torch.Tensor):
     (all ceil(log2 L) doubling rounds, as the JAX step runs them), the
     byte histogram of every byte, and the Adler partial sums per window
     (sum b, sum (L - i) * b), exact in int64."""
-    sa, ranks = doubling_rounds(windows.to(torch.int32))
+    sa, ranks, _ = doubling_rounds(windows.to(torch.int32))
     hist = byte_histogram(windows.reshape(-1))
     b = windows.to(torch.int64)
     weights = torch.arange(windows.shape[1], 0, -1, dtype=torch.int64, device=windows.device)

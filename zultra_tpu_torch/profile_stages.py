@@ -222,8 +222,8 @@ def _golden_match(case: dict, dev) -> list:
             _, rank, distinct = suffix_torch._round(rank, 1 << level)
             if distinct_at is None and bool(distinct.all()):
                 distinct_at = level + 1
-        sa, _, ranks = suffix_torch.stored_rounds(bufs, 8)
-        later_ms = programs._event_ms(lambda: suffix_torch.later_rounds(sa, ranks[-1], 8), 3)
+        fresh = iter([suffix_torch.stored_rounds(bufs, 8)[0] for _ in range(3)])
+        later_ms = programs._event_ms(lambda: suffix_torch.later_rounds(next(fresh), 8), 3)
         prog = replays[programs.program_key(matchfinder_torch.match_program, (corpus_dev, meta),
                                             {"W": W, "k": k})]
         if prog["max_abs_err"]:

@@ -20,6 +20,9 @@ reads the counters without a call to ``enable``):
   that issued it (the ``zultra.*`` spans of the pipeline);
 * ``count(name, n)``: a named counter (program replays, padded lane
   positions, copied bytes);
+* ``keep(name, tensor)``: a device tensor whose sum goes to the counter
+  ``name`` when the report is made (the doubling rounds the segments
+  ran), so that counting waits for the device at report time alone;
 * ``report()`` / ``reset()``: both, with the kernel launch counts.
 
 Off, ``span`` hands back one shared no-op context and ``count`` returns
@@ -42,6 +45,7 @@ import torch
 _STAGE_TOTALS: dict[str, float] = defaultdict(float)
 _STAGE_COUNTS: dict[str, int] = defaultdict(int)
 _COUNTERS: dict[str, float] = defaultdict(int)
+_KEPT: list = []  # (counter name, device tensor) of ``keep``
 _LOCK = threading.Lock()
 _NOOP = contextlib.nullcontext()
 _on = False
@@ -130,16 +134,30 @@ def count(name: str, n=1) -> None:
         _COUNTERS[name] += n
 
 
+def keep(name: str, t: torch.Tensor) -> None:
+    """Keep ``t`` while tracing is on: ``report`` adds its sum to the
+    counter ``name``. Nothing waits for the device here."""
+    if not (_on or _profiler_on()):
+        return
+    with _LOCK:
+        _KEPT.append((name, t))
+
+
 def report(reset: bool = False) -> dict:
     """{"spans": {name: {total_s, calls}}, "counters": {name: n},
     "launches": ops.launch_counts()} since the last reset; the stage
-    timers' totals are among the spans."""
+    timers' totals are among the spans, the kept tensors' sums among the
+    counters (the one wait for the device here)."""
     from .ops import launch_counts
 
     with _LOCK:
         out = {"spans": {name: {"total_s": total, "calls": _STAGE_COUNTS[name]}
-                         for name, total in sorted(_STAGE_TOTALS.items())},
-               "counters": dict(sorted(_COUNTERS.items()))}
+                         for name, total in sorted(_STAGE_TOTALS.items())}}
+        counters = dict(_COUNTERS)
+        kept = list(_KEPT)
+    for name, t in kept:
+        counters[name] = counters.get(name, 0) + int(t.sum())
+    out["counters"] = dict(sorted(counters.items()))
     out["launches"] = launch_counts()
     if reset:
         _clear()
@@ -158,6 +176,7 @@ def _clear() -> None:
         _STAGE_TOTALS.clear()
         _STAGE_COUNTS.clear()
         _COUNTERS.clear()
+        _KEPT.clear()
     reset_launch_counts()
 
 
