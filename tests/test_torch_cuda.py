@@ -738,6 +738,44 @@ def test_devices_and_windows_per_batch_equal_native(cuda):
         engine._active_engine = None
 
 
+def test_later_batch_launch_makes_no_host_sync(cuda, monkeypatch):
+    """Three one-window batches at 32 KiB blocks give the CPU's bytes; once
+    every program replays, each later batch's launch (upload, match
+    program, pads, split program) runs under set_sync_debug_mode("error"),
+    so nothing between its launch and the splice of the batch before it
+    waits for the card."""
+    from zultra_tpu_torch import compress_device, device_pipeline
+
+    data = mixed_corpus(2 * 32768 + 3000, seed=301)
+    want = compress_device(data, 2, 32768, windows_per_batch=1, device="cpu")
+    for _ in range(2):  # the eager call and the capture of each program
+        assert compress_device(data, 2, 32768, windows_per_batch=1, device=cuda) == want
+    real, strict = device_pipeline.launch_windows, []
+
+    def launch(corpus, spans, mbs, device):
+        if spans[0][0] == 0:
+            return real(corpus, spans, mbs, device)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            launched = real(corpus, spans, mbs, device)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        strict.append(spans[0][0])
+        return launched
+
+    monkeypatch.setattr(device_pipeline, "launch_windows", launch)
+    profiling.enable()
+    try:
+        got = compress_device(data, 2, 32768, windows_per_batch=1, device=cuda)
+    finally:
+        profiling.enable(False)
+    counters = profiling.report(reset=True)["counters"]
+    assert got == want
+    assert strict == [32768, 65536]
+    assert counters["splice.overlapped"] == 2
+    assert counters.get("program.capture", 0) == 0 and counters.get("program.eager", 0) == 0
+
+
 def test_one_window_lane_follows_its_input_on_the_card(cuda):
     """A 48,944-byte gzip input at 1 MiB blocks: each call plans one batch
     at a lane of two segments, gives the CPU form's bytes, and from the

@@ -34,15 +34,16 @@ def native():
 
 @pytest.fixture()
 def widths(monkeypatch):
-    """(windows, width) of every ``begin_windows_batched`` call."""
+    """(windows, width) of every batch ``compress_device`` launches
+    (``launch_windows``)."""
     seen = []
-    real = device_pipeline.begin_windows_batched
+    real = device_pipeline.launch_windows
 
     def recording(corpus, spans, mbs, device):
         seen.append((len(spans), mbs))
         return real(corpus, spans, mbs, device)
 
-    monkeypatch.setattr(device_pipeline, "begin_windows_batched", recording)
+    monkeypatch.setattr(device_pipeline, "launch_windows", recording)
     return seen
 
 
@@ -52,15 +53,15 @@ class _Planned(Exception):
 
 @pytest.fixture()
 def first_width(monkeypatch):
-    """The width of the first ``begin_windows_batched`` call, which stops
-    the compression there (no planning)."""
+    """The width of the first batch ``compress_device`` launches, which
+    stops the compression there (no planning)."""
     seen = []
 
     def recording(corpus, spans, mbs, device):
         seen.append((len(spans), mbs))
         raise _Planned
 
-    monkeypatch.setattr(device_pipeline, "begin_windows_batched", recording)
+    monkeypatch.setattr(device_pipeline, "launch_windows", recording)
     return seen
 
 

@@ -283,12 +283,16 @@ def test_dp_counters_count_long_lanes(monkeypatch):
 
 def test_counters_whole_under_two_threads(two_windows):
     """Two planning threads (two CPU devices, a window each) count what
-    one thread counts batch by batch; and bare counts from threads that
-    switch as often as the interpreter can lose none."""
+    one thread counts batch by batch, but for the schedule's own counter:
+    one batch of two windows overlaps no splice, two batches of one
+    overlap the first; and bare counts from threads that switch as often
+    as the interpreter can lose none."""
     data, out, report, *_ = two_windows
     got, got_report, _ = _traced(data, windows_per_batch=1, devices=["cpu", "cpu"])
     assert got == out
-    assert got_report["counters"] == report["counters"]
+    got_counters, counters = dict(got_report["counters"]), dict(report["counters"])
+    assert (got_counters.pop("splice.overlapped"), counters.pop("splice.overlapped")) == (0, 1)
+    assert got_counters == counters
     assert {k: s["calls"] for k, s in got_report["spans"].items()} \
         == {k: s["calls"] for k, s in report["spans"].items()}
 

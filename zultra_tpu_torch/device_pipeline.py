@@ -179,8 +179,8 @@ def begin_windows_batched(corpus: np.ndarray, spans, mbs: int, device) -> list:
     (HALO + mbs) lane with its first input byte at offset HALO and its
     real history bytes (<= 32 KB) just below; the lanes' bytes and match
     tables come from ``match_stacks``. Returns one _WindowPlan per span,
-    in order."""
-    return plan_windows(corpus, spans, mbs, *match_stacks(corpus, spans, mbs, device))
+    in order. ``launch_windows`` then ``finish_windows``."""
+    return finish_windows(launch_windows(corpus, spans, mbs, device))
 
 
 def plan_windows(corpus: np.ndarray, spans, mbs: int, lens_st: torch.Tensor,
@@ -191,31 +191,68 @@ def plan_windows(corpus: np.ndarray, spans, mbs: int, lens_st: torch.Tensor,
     int32 and window bytes ``win_dev`` (W, HALO + mbs) uint8 in the lane
     layout ``match_stacks`` gives. Returns one _WindowPlan per span, in
     order."""
-    device = win_dev.device
-    n_lane = HALO + mbs
-    prevs = [min(HISTORY_SIZE, w_lo) for w_lo, _ in spans]
+    return finish_windows(launch_split(corpus, spans, mbs, lens_st, offs_st, win_dev))
 
-    n_pad = split_bucket(n_lane)
-    tail = n_pad - n_lane
+
+class _LaunchedBatch:
+    """A batch whose device work is queued up to its split points and not
+    waited for: the window stacks, the split program's inputs (for the
+    exact retry) and its outputs."""
+
+    __slots__ = ("corpus", "spans", "mbs", "stacks", "split_args", "split")
+
+    def __init__(self, corpus, spans, mbs, stacks, split_args, split):
+        self.corpus, self.spans, self.mbs = corpus, spans, mbs
+        self.stacks, self.split_args, self.split = stacks, split_args, split
+
+
+def launch_windows(corpus: np.ndarray, spans, mbs: int, device) -> _LaunchedBatch:
+    """The first half of ``begin_windows_batched``: the batch's upload, its
+    match program and its split program queued on ``device``, with no
+    wait for the device."""
+    return launch_split(corpus, spans, mbs, *match_stacks(corpus, spans, mbs, device))
+
+
+def launch_split(corpus: np.ndarray, spans, mbs: int, lens_st: torch.Tensor,
+                 offs_st: torch.Tensor, win_dev: torch.Tensor) -> _LaunchedBatch:
+    """The first half of ``plan_windows``: the pads, the lanes' lengths and
+    the split program queued on the device of the stacks, with no wait."""
+    n_lane = HALO + mbs
+    tail = split_bucket(n_lane) - n_lane
     with profiling.span("zultra.split"):
         win_p = torch.nn.functional.pad(win_dev, (0, tail))
         rl = torch.nn.functional.pad(lens_st[:, :, 0], (0, tail))
         ro = torch.nn.functional.pad(offs_st[:, :, 0], (0, tail))
-        n_real = to_device(np.array([HALO + (hi - lo) for lo, hi in spans], np.int32), device)
+        n_real = to_device(np.array([HALO + (hi - lo) for lo, hi in spans], np.int32),
+                           win_dev.device)
         cap = input_cap(mbs)
-        splits, n_splits, tok_marks, ovf = split_batch(win_p, rl, ro, HALO, n_real, cap,
-                                                       trig_cap_for(cap))
-        # The batch's one wait before the plans: the split points and the
-        # overflow flags come back together.
-        splits, n_splits, ovf = to_host(splits, n_splits, ovf)
-        if ovf.any():
-            # Exact retry of the overflowing lanes with every candidate slot
-            # evaluated.
-            full_splits, full_n = to_host(*split_batch(win_p, rl, ro, HALO, n_real, cap, 0)[:2])
-            splits = np.where(ovf[:, None], full_splits, splits)
-            n_splits = np.where(ovf, full_n, n_splits)
+        split_args = (win_p, rl, ro, HALO, n_real, cap)
+        split = split_batch(*split_args, trig_cap_for(cap))
+    return _LaunchedBatch(corpus, spans, mbs, (lens_st, offs_st, win_dev), split_args, split)
+
+
+def finish_windows(batch: _LaunchedBatch) -> list:
+    """The second half of ``begin_windows_batched`` and ``plan_windows``:
+    the wait for the split points, the exact retry of the lanes whose
+    candidates overflowed, and the block plans. Returns one _WindowPlan
+    per span, in order."""
+    corpus, spans, mbs = batch.corpus, batch.spans, batch.mbs
+    lens_st, offs_st, win_dev = batch.stacks
+    n_lane = HALO + mbs
+    prevs = [min(HISTORY_SIZE, w_lo) for w_lo, _ in spans]
+
+    splits, n_splits, tok_marks, ovf = batch.split
+    # The batch's one wait before the plans: the split points and the
+    # overflow flags come back together.
+    splits, n_splits, ovf = to_host(splits, n_splits, ovf)
+    if ovf.any():
+        # Exact retry of the overflowing lanes with every candidate slot
+        # evaluated.
+        full_splits, full_n = to_host(*split_batch(*batch.split_args, 0)[:2])
+        splits = np.where(ovf[:, None], full_splits, splits)
+        n_splits = np.where(ovf, full_n, n_splits)
     if profiling.enabled():
-        profiling.count("split.positions", len(spans) * n_pad)
+        profiling.count("split.positions", len(spans) * batch.split_args[0].shape[1])
         profiling.count("split.input", sum(HALO + hi - lo for lo, hi in spans))
         profiling.count("split.retry", int(ovf.sum()))
 
@@ -285,8 +322,13 @@ def lane_width(spans, mbs: int) -> int:
 
 def begin_windows_on(device: torch.device, corpus: np.ndarray, spans, mbs: int) -> list:
     """begin_windows_batched with ``device`` current."""
+    return _on(device, begin_windows_batched, corpus, spans, mbs, device)
+
+
+def _on(device: torch.device, fn, *args):
+    """``fn(*args)`` with ``device`` current."""
     with on_device(device):
-        return begin_windows_batched(corpus, spans, mbs, device)
+        return fn(*args)
 
 
 def compress_device(data: bytes, flags: int = 0, max_block_size: int = 0,
@@ -306,7 +348,12 @@ def compress_device(data: bytes, flags: int = 0, max_block_size: int = 0,
     device may appear twice (two threads share its stream). ``device``
     is the one device when ``devices`` is None. Each batch is planned at
     ``lane_width``: a one-window batch shorter than the block size at its
-    input's width, with the same bytes."""
+    input's width, with the same bytes.
+
+    The batches run one deep in a pipeline: batch g + 1's match and split
+    programs are queued (``launch_windows``) before the host splices
+    batch g, and the checksum runs behind batch 0's; the splice order,
+    and so the bytes, are those of one batch after another."""
     with profiling.span("zultra.compress"):
         return _compress_device(data, flags, max_block_size, dictionary, windows_per_batch,
                                 devices, device)
@@ -332,33 +379,49 @@ def _compress_device(data, flags, max_block_size, dictionary, windows_per_batch,
         hi = min(pos + mbs, len(data_b))
         spans.append((base + pos, base + hi))
         pos = hi
+    per_batch = windows_per_batch * len(devs)
+    batches = [spans[g : g + per_batch] for g in range(0, len(spans), per_batch)]
 
     out = bytearray(frame.encode_header(flags, dict_b if dict_b else None))
-    with profiling.span("zultra.checksum"):
-        checksum = frame.update_checksum(frame.init_checksum(flags), corpus[base:], flags)
     buf = bytearray(memory_bound(mbs, flags, mbs))
-    bits_data, bits_count = 0, 0
-    per_batch = windows_per_batch * len(devs)
+    bits_data, bits_count, emitted = 0, 0, 0
     pool = ThreadPoolExecutor(len(devs)) if len(devs) > 1 else None
+
+    def on_each(fn, work):
+        """``fn(*args)`` with ``device`` current, for each (device, *args) of
+        ``work``: on the pool's threads where there are several devices."""
+        def call(w):
+            return _on(w[0], fn, *w[1:])
+
+        return list((map if pool is None else pool.map)(call, work))
+
+    def launch(batch):
+        width = lane_width(batch, mbs)
+        profiling.count("lane.narrowed", int(width < mbs))
+        per = -(-len(batch) // len(devs))
+        work = [(d, corpus, batch[i * per : (i + 1) * per], width, d)
+                for i, d in enumerate(devs) if batch[i * per : (i + 1) * per]]
+        return [(w[0], launched) for w, launched in zip(work, on_each(launch_windows, work))]
+
     try:
-        for g in range(0, len(spans), per_batch):
-            batch = spans[g : g + per_batch]
-            width = lane_width(batch, mbs)
-            profiling.count("lane.narrowed", int(width < mbs))
-            per = -(-len(batch) // len(devs))
-            groups = [(d, batch[i * per : (i + 1) * per]) for i, d in enumerate(devs)
-                      if batch[i * per : (i + 1) * per]]
-            if pool is None:
-                planned = [begin_windows_on(d, corpus, grp, width) for d, grp in groups]
-            else:
-                planned = list(pool.map(lambda dg: begin_windows_on(dg[0], corpus, dg[1], width),
-                                        groups))
-            handles = [h for hs in planned for h in hs]
-            for i, handle in enumerate(handles):
-                is_last = g + i + 1 == len(spans)
+        pending = launch(batches[0])
+        with profiling.span("zultra.checksum"):
+            checksum = frame.update_checksum(frame.init_checksum(flags), corpus[base:], flags)
+        for g in range(len(batches)):
+            # Batch g's plans reach the host here (the planner's collect) and
+            # its device tensors go with ``pending``, before batch g + 1's
+            # programs replay; their outputs are copies taken right after
+            # each replay, never the graphs' static buffers.
+            ready, pending = [h for hs in on_each(finish_windows, pending) for h in hs], None
+            overlapped = g + 1 < len(batches)
+            if overlapped:
+                pending = launch(batches[g + 1])
+            profiling.count("splice.overlapped", int(overlapped))
+            for handle in ready:
+                emitted += 1
                 with profiling.span("zultra.splice"):
                     n, bits_data, bits_count = emit_window_from_plan(
-                        handle, is_last, buf, bits_data, bits_count)
+                        handle, emitted == len(spans), buf, bits_data, bits_count)
                 out += buf[:n]
     finally:
         if pool is not None:
